@@ -1,0 +1,23 @@
+"""phi3-medium-14b [dense] — RoPE SwiGLU GQA.
+
+40L d_model=5120 40H (GQA kv=10) d_ff=17920 vocab=100352.
+[arXiv:2404.14219; unverified]
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=10,
+    d_ff=17920,
+    vocab_size=100352,
+    ffn_kind="swiglu",
+    norm_kind="rmsnorm",
+    tie_embeddings=False,
+    supports_long_context=False,
+    source="arXiv:2404.14219; unverified",
+)

@@ -1,0 +1,24 @@
+"""repro_torch.core — CrossFlow (the paper's performance model) in PyTorch.
+
+    techlib     technology components library          (paper §4.1)
+    age         micro-architecture generator engine    (paper §4.2-4.4)
+    graph       compute-graph IR                       (paper §3, §5)
+    lmgraph     arch config x shape cell -> compute graph
+    parallelism strategy space                         (paper §3.3)
+    transform   super-graph transformation             (paper §5.1)
+    placement   device mapping + routing               (paper §5.2)
+    roofline    hierarchical roofline PPE              (paper §6.1-6.4)
+    simulate    event-driven end-to-end estimation     (paper §6.5) + predict()
+    sweepexec   the JSONL reader/writer pair of the record files
+    tensors     float32 scalar helpers mirroring jax.numpy's weak typing
+
+The DeepFlow search layers (soe, pathfinder, sweeps, cooptimize) come with
+later slices of the port.
+"""
+
+from repro_torch.core import age, graph, lmgraph, parallelism, placement, \
+    roofline, simulate, sweepexec, techlib, transform
+from repro_torch.core.age import Budgets, MicroArch
+from repro_torch.core.graph import ComputeGraph
+from repro_torch.core.parallelism import Strategy
+from repro_torch.core.simulate import predict

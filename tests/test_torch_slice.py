@@ -1,0 +1,197 @@
+"""The whole port slice on the CPU: calibrate -> files -> validate.
+
+The port's CLI runs the quick suite on the host (``--device cpu``); the
+reference reads every file it writes and scores the port's measurements
+and profile to the same report; the files cross in both directions field
+for field; chip_smoke.py's phases run on the host at a tiny size, and the
+script itself refuses to run without a card.  The port and chip_smoke.py
+import nothing of JAX or of the reference package.
+"""
+
+import ast
+import dataclasses
+import importlib.util
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
+import numpy as np
+import pytest
+import torch
+
+from repro.calibrate import fitting as ref_fitting
+from repro.calibrate import microbench as ref_mb
+from repro.calibrate import profiles as ref_profiles
+from repro.calibrate import report as ref_report
+from repro.core import age as ref_age
+from repro.core import roofline as ref_roofline
+from repro_torch import pathfind
+from repro_torch.calibrate import microbench, profiles
+from repro_torch.core import age, roofline
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def cal_dir(tmp_path_factory):
+    out = tmp_path_factory.mktemp("torch_cal") / "cal"
+    rc = pathfind.main(["calibrate", "--suite", "quick", "--device", "cpu",
+                        "--tech", "tpu_v5e", "--reps", "1", "--steps", "5",
+                        "--starts", "2", "--tilings", "8", "--out",
+                        str(out)])
+    assert rc == 0
+    return out
+
+
+def test_reference_reads_the_port_output_and_agrees(cal_dir):
+    prof = ref_profiles.load_profile(str(cal_dir / "profile.json"))
+    recs = ref_mb.load_measurements(str(cal_dir))
+    assert prof.tech == "tpu_v5e"
+    assert prof.measure_fingerprint == ref_mb.default_spec(
+        "quick", reps=1).fingerprint()
+    assert len(recs) == len(ref_mb.enumerate_points(
+        ref_mb.default_spec("quick")))
+    want = ref_report.validation_report(
+        recs, ref_age.tpu_v5e_microarch(), params=prof.params,
+        ppe=ref_roofline.PPEConfig(n_tilings=8))
+    got = json.loads((cal_dir / "report.json").read_text())
+    assert set(got["groups"]) == set(want["groups"]) == {"gemm"}
+    for g in want["groups"]:
+        for key, v in want["groups"][g].items():
+            np.testing.assert_allclose(got["groups"][g][key], v, rtol=1e-5,
+                                       err_msg=key)
+    for key, v in want["overall"].items():
+        np.testing.assert_allclose(got["overall"][key], v, rtol=1e-5)
+
+
+def test_validate_exits_zero(cal_dir, capsys):
+    assert pathfind.main(["validate", "--out", str(cal_dir), "--device",
+                          "cpu"]) == 0
+    assert "gemm" in capsys.readouterr().out
+
+
+def test_entry_points_need_the_card_unless_asked(cal_dir):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pathfind.main(["validate", "--out", str(cal_dir)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        age.tpu_v5e_microarch()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        microbench.MicrobenchRunner(microbench.default_spec("quick")).run()
+
+
+TINY = dict(suite="slice", gemm_shapes=((64, 64, 64), (128, 128, 256)),
+            pallas_shapes=((64, 64, 64), (40, 120, 72)),
+            elementwise_sizes=(1 << 12,), reps=1)
+
+
+def test_files_cross_between_packages_field_for_field(tmp_path):
+    """spec.json, measurements.jsonl and profile.json written by each
+    package load in the other, every field intact."""
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    ref_mb.MicrobenchRunner(ref_mb.MeasureSpec.from_dict(TINY),
+                            out_dir=str(ref_dir)).run()
+    microbench.MicrobenchRunner(microbench.MeasureSpec.from_dict(TINY),
+                                out_dir=str(port_dir), device="cpu").run()
+    for d in (ref_dir, port_dir):
+        ref_recs = ref_mb.load_measurements(str(d))
+        recs = microbench.load_measurements(str(d))
+        assert recs == ref_recs and len(recs) == 5
+        assert microbench.MicrobenchRunner.from_dir(str(d)).spec.to_dict() \
+            == ref_mb.MicrobenchRunner.from_dir(str(d)).spec.to_dict()
+    a = json.loads((ref_dir / "spec.json").read_text())
+    b = json.loads((port_dir / "spec.json").read_text())
+    assert a == b
+    port_keys = [json.loads(line)
+                 for line in (port_dir / "measurements.jsonl").open()]
+    ref_keys = [json.loads(line)
+                for line in (ref_dir / "measurements.jsonl").open()]
+    assert [sorted(r) for r in port_keys] == [sorted(r) for r in ref_keys]
+
+    params = dict(ref_fitting.default_params(), compute_eff=0.3,
+                  kernel_overhead_s=7e-6)
+    made = {
+        "ref": ref_profiles.CalibrationProfile(
+            tech="tpu_v5e", params=params, measure_fingerprint="abc",
+            fit={"mre": 0.1, "n_tilings": 8}, validation={"x": {"n": 3}}),
+        "port": profiles.CalibrationProfile(
+            tech="tpu_v5e", params=params, measure_fingerprint="abc",
+            fit={"mre": 0.1, "n_tilings": 8}, validation={"x": {"n": 3}}),
+    }
+    ref_profiles.save_profile(made["ref"], str(tmp_path / "ref.json"))
+    profiles.save_profile(made["port"], str(tmp_path / "port.json"))
+    assert (tmp_path / "ref.json").read_bytes() == \
+        (tmp_path / "port.json").read_bytes()
+    got = profiles.load_profile(str(tmp_path / "ref.json"))
+    back = ref_profiles.load_profile(str(tmp_path / "port.json"))
+    assert dataclasses.asdict(got) == dataclasses.asdict(made["ref"])
+    assert dataclasses.asdict(back) == dataclasses.asdict(made["port"])
+    # applied to the same template they give the same hardware and PPE
+    ref_arch = ref_profiles.apply_profile(ref_age.tpu_v5e_microarch(), back)
+    arch = profiles.apply_profile(age.tpu_v5e_microarch(device="cpu"), got)
+    for f in age.LEAF_FIELDS:
+        np.testing.assert_allclose(np.asarray(getattr(arch, f), np.float64),
+                                   np.asarray(getattr(ref_arch, f),
+                                              np.float64), rtol=1e-12)
+    assert dataclasses.asdict(profiles.ppe_with_profile(
+        roofline.PPEConfig(), got)) == dataclasses.asdict(
+        ref_profiles.ppe_with_profile(ref_roofline.PPEConfig(), back))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
+    cs = _chip_smoke()
+    rows = cs.run(torch.device("cpu"), microbench.MeasureSpec(**TINY),
+                  tmp_path / "cs", cs.UNIT_SHAPES[:2], (), steps=3,
+                  starts=2)
+    out = capsys.readouterr().out
+    assert "gemm_pallas" in out and "total_s" in out
+    assert [r["name"] for r in rows] == ["gemm"] and rows[0]["launches"] == 0
+    assert set(rows[0]) == {"name", "route", "source", "replaces",
+                            "launches", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms"}
+    assert (REPO / rows[0]["source"]).is_file()
+
+
+def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    for cwd in (REPO, alone):
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax_or_the_reference():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), name) for f in files
+           for name in _imports(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
