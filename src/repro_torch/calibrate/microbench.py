@@ -10,8 +10,14 @@ unless the caller asks for the CPU:
                reference's name so measurement files stay interchangeable
   elementwise  ``torch.add(b, a, alpha=1.5)`` — one kernel, as XLA fuses
                the reference's saxpy (the PPE's vector/bandwidth path)
-  collective / train_step / prefill / decode_step
-               not in this slice of the port: measuring one raises
+  prefill      one ``Model.forward`` (no cache) of the port's LM runtime
+               at smoke size (`configs.base.reduced`): every attention
+               call launches the hand-written flash-attention kernel
+  decode_step  one-token ``Model.decode_step`` over a full KV cache at
+               smoke size — the KV-cache-read-bound step that anchors the
+               model's main-memory bandwidth path
+  collective / train_step
+               not in the port yet: measuring one raises
                NotImplementedError naming the ROADMAP item that brings it
 
 Measurements stream to ``measurements.jsonl`` with the sweep runner's
@@ -111,10 +117,11 @@ def default_spec(suite: str = "quick", reps: int = 3) -> MeasureSpec:
     full   the reference's full suite (adds the hand-written GEMM,
            elementwise probes, collectives and model-family steps; the
            last two are not in this slice of the port and raise).
-    slice  what this slice of the port runs on the card: the quick GEMMs
-           through cuBLAS, the same shapes plus the full-width qwen1.5-0.5b
-           layer GEMMs through the hand-written kernel, and bandwidth
-           probes.
+    slice  what the port runs on the card: the quick GEMMs through
+           cuBLAS, the same shapes plus the full-width qwen1.5-0.5b layer
+           GEMMs through the hand-written kernel, bandwidth probes, and
+           the qwen1.5-0.5b prefill and decode steps at smoke size (the
+           hand-written flash-attention kernel).
     """
     gemm = tuple(
         (m, n, k)
@@ -136,7 +143,10 @@ def default_spec(suite: str = "quick", reps: int = 3) -> MeasureSpec:
         return MeasureSpec(
             suite="slice", gemm_shapes=gemm,
             pallas_shapes=gemm + QWEN_LAYER_SHAPES,
-            elementwise_sizes=(1 << 16, 1 << 20, 1 << 23), reps=reps)
+            elementwise_sizes=(1 << 16, 1 << 20, 1 << 23),
+            model_archs=("qwen1.5-0.5b",),
+            model_phases=("prefill", "decode_step"), model_seq=128,
+            model_batch=2, reps=reps)
     raise ValueError(f"unknown suite {suite!r}; expected quick|full|slice")
 
 
@@ -260,11 +270,65 @@ def _measure_elementwise(pt: MeasurePoint, spec: MeasureSpec,
             "t_s": best, "t_mean_s": mean}
 
 
-def _not_ported(item: str) -> Callable:
+# smoke-size shape cell used for model-step measurements; the prediction
+# side (fitting._model_skeleton) builds its lmgraph from the identical
+# (reduced cfg, cell) pair
+_CELL_KINDS = {"train_step": "train", "prefill": "prefill",
+               "decode_step": "decode"}
+
+
+def model_cell(pt: MeasurePoint):
+    from repro_torch.configs.base import ShapeCell
+    kind = _CELL_KINDS[pt.kind]
+    return ShapeCell(f"cal_{kind}", int(pt.get("seq")),
+                     int(pt.get("batch")), kind)
+
+
+def _smoke_model(pt: MeasurePoint, device: torch.device):
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import build_model
+    cfg = reduced(get_config(str(pt.get("arch"))))
+    model = build_model(cfg, device)
+    return cfg, model, model.init(0), int(pt.get("seq")), \
+        int(pt.get("batch"))
+
+
+def _measure_prefill(pt: MeasurePoint, spec: MeasureSpec,
+                     device: torch.device) -> Dict:
+    """One forward pass over (batch, seq) tokens, no cache."""
+    _, model, params, seq, batch = _smoke_model(pt, device)
+    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+    with torch.no_grad():
+        best, mean = _time_fn(lambda: model.forward(params,
+                                                    {"tokens": tokens}),
+                              spec.warmup, spec.reps, device)
+    return {"flops": 0.0, "bytes": 0.0, "t_s": best, "t_mean_s": mean}
+
+
+def _measure_decode(pt: MeasurePoint, spec: MeasureSpec,
+                    device: torch.device) -> Dict:
+    """One-token decode over a FULL KV cache (pos = seq-1): the measured
+    step is KV-cache-read-bound — attention reads the whole context per
+    token — anchoring the dram-bandwidth path the serving scenarios lean
+    on.  The cache is updated in place at slot seq-1 on every run, so
+    every run does the same work."""
+    from repro_torch.core.scenarios import kv_cache_bytes
+    cfg, model, params, seq, batch = _smoke_model(pt, device)
+    caches = model.init_cache(batch, seq)
+    tokens = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+    with torch.no_grad():
+        best, mean = _time_fn(
+            lambda: model.decode_step(params, caches, tokens, seq - 1),
+            spec.warmup, spec.reps, device)
+    return {"flops": 0.0, "bytes": float(kv_cache_bytes(cfg, seq, batch)),
+            "t_s": best, "t_mean_s": mean}
+
+
+def _not_ported(what: str) -> Callable:
     def measure(pt: MeasurePoint, spec: MeasureSpec, device) -> Dict:
         raise NotImplementedError(
-            f"measurement kind {pt.kind!r} is not in this slice of the "
-            f"port: it comes with ROADMAP queue 1 item {item}")
+            f"measurement kind {pt.kind!r} is not in the port yet: it "
+            f"comes with {what}")
     return measure
 
 
@@ -273,10 +337,13 @@ _MEASURERS: Dict[str, Callable[[MeasurePoint, MeasureSpec, torch.device],
     "gemm": _measure_gemm,
     "gemm_pallas": _measure_gemm_pallas,
     "elementwise": _measure_elementwise,
-    "collective": _not_ported("9 (parallel/collectives.py as NCCL)"),
-    "train_step": _not_ported("9 (the LM runtime)"),
-    "prefill": _not_ported("9 (the LM runtime)"),
-    "decode_step": _not_ported("9 (the LM runtime)"),
+    "collective": _not_ported("ROADMAP queue 1 item 9 "
+                              "(parallel/collectives.py as NCCL)"),
+    "train_step": _not_ported("the training slice of the port (backward "
+                              "kernels, optim/adamw.py; ROADMAP queue 1 "
+                              "item 9)"),
+    "prefill": _measure_prefill,
+    "decode_step": _measure_decode,
 }
 
 

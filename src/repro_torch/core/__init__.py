@@ -9,6 +9,8 @@
     placement   device mapping + routing               (paper §5.2)
     roofline    hierarchical roofline PPE              (paper §6.1-6.4)
     simulate    event-driven end-to-end estimation     (paper §6.5) + predict()
+    planner     CrossFlow -> runtime: the sharding plan for a mesh
+    scenarios   memory accounting (kv_cache_bytes; the folds come later)
     sweepexec   the JSONL reader/writer pair of the record files
     tensors     float32 scalar helpers mirroring jax.numpy's weak typing
 
@@ -17,7 +19,7 @@ later slices of the port.
 """
 
 from repro_torch.core import age, graph, lmgraph, parallelism, placement, \
-    roofline, simulate, sweepexec, techlib, transform
+    planner, roofline, scenarios, simulate, sweepexec, techlib, transform
 from repro_torch.core.age import Budgets, MicroArch
 from repro_torch.core.graph import ComputeGraph
 from repro_torch.core.parallelism import Strategy

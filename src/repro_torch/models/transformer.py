@@ -1,0 +1,348 @@
+"""Decoder-only LM: the attention families (dense, GQA, local/global with a
+ring-buffer cache, QKV bias, RoPE, logit softcap, the vision-stub
+``embeds``) of ``repro.models.transformer``.
+
+Layers come in *pattern groups*: the per-layer kind sequence has period
+lcm(|block_pattern|, |attn_pattern|); per-group params are stacked along a
+leading ``layers`` axis (the reference's tree layout, so weights cross 1:1)
+and applied by a Python loop over that axis where the reference scans; a
+partial remainder group (gemma3: 62 = 6*10 + 2) is applied explicitly.
+
+Every attention call goes through `common.chunked_attention`, that is the
+hand-written flash-attention kernel.  The recurrent blocks (RG-LRU, m/sLSTM)
+and MoE raise NotImplementedError naming the ROADMAP item that ports them.
+
+Caches are written in place: `forward` with caches (prefill) and
+`decode_step` update the cache tensors they are given and return the same
+dict, where the reference returns new arrays of equal value.
+
+Each model exposes:
+    lm_defs(cfg)                    ParamDef tree (single source of truth)
+    forward(params, tokens, ...)    logits (train / prefill; optional caches)
+    init_cache(cfg, batch, len)     decode caches
+    decode_step(params, cache, tokens, pos)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common
+from repro_torch.models.common import ParamDef
+
+_RECURRENT_ITEM = ("the recurrent blocks (RG-LRU, mLSTM, sLSTM) are not "
+                   "ported yet: ROADMAP queue 1 item 10")
+_MOE_ITEM = ("MoE blocks (models/moe.py) are not ported yet: ROADMAP "
+             "queue 1 item 9")
+
+# ---------------------------------------------------------------------------
+# pattern machinery
+# ---------------------------------------------------------------------------
+
+
+def effective_pattern(cfg: ArchConfig) -> List[Tuple[str, str]]:
+    """Per-layer (block_kind, attn_kind) with the combined period."""
+    period = len(cfg.block_pattern)
+    if "attn" in cfg.block_pattern:
+        period = math.lcm(period, len(cfg.attn_pattern))
+    period = min(period, cfg.n_layers)
+    return [(cfg.block_kind(i),
+             cfg.attn_kind(i) if cfg.block_kind(i) == "attn" else "-")
+            for i in range(period)]
+
+
+def group_layout(cfg: ArchConfig) -> Tuple[List[Tuple[str, str]], int, int]:
+    """(pattern, n_full_groups, n_remainder_layers)."""
+    if cfg.n_layers == 0:
+        return [], 0, 0
+    pat = effective_pattern(cfg)
+    return pat, cfg.n_layers // len(pat), cfg.n_layers % len(pat)
+
+
+def stack_defs(defs, n: int):
+    return common.tree_map(
+        lambda d: ParamDef((n,) + d.shape, ("layers",) + d.axes,
+                           init=d.init, scale=d.scale), defs)
+
+
+# ---------------------------------------------------------------------------
+# attention / ffn blocks
+# ---------------------------------------------------------------------------
+
+
+def attention_defs(cfg: ArchConfig) -> Dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    defs = {
+        "wq": ParamDef((d, nh * hd), ("fsdp", "heads")),
+        "wk": ParamDef((d, nkv * hd), ("fsdp", "heads")),
+        "wv": ParamDef((d, nkv * hd), ("fsdp", "heads")),
+        "wo": ParamDef((nh * hd, d), ("heads", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((nh * hd,), ("heads",), init="zeros")
+        defs["bk"] = ParamDef((nkv * hd,), ("heads",), init="zeros")
+        defs["bv"] = ParamDef((nkv * hd,), ("heads",), init="zeros")
+    return defs
+
+
+def _proj(x, w, b=None):
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    cache: Optional[Dict] = None, pos: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (b, s, d). Modes:
+      train:    cache=None                          -> (out, None)
+      prefill:  cache={k,v empty (b,nkv,S,hd)}      -> (out, filled cache)
+      decode:   cache filled, pos = current length  -> (out, updated cache)
+    ``pos`` is a host int; the cache is updated in place.
+    """
+    b, s, d = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = _proj(x, p["wq"], p.get("bq")).reshape(b, s, nh, hd)
+    k = _proj(x, p["wk"], p.get("bk")).reshape(b, s, nkv, hd)
+    v = _proj(x, p["wv"], p.get("bv")).reshape(b, s, nkv, hd)
+
+    if cfg.rope_theta:
+        qpos = torch.arange(s, device=x.device) + (pos or 0)
+        q = common.rope(q, qpos.expand(b, s), cfg.rope_theta)
+        k = common.rope(k, qpos.expand(b, s), cfg.rope_theta)
+
+    q = q.transpose(1, 2)                             # (b, nh, s, hd)
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    q = common.logical(q, ("batch", "act_heads", "act_seq", None))
+
+    kv_len = None
+    q_off = 0
+    if cache is not None:
+        W = cache["k"].shape[2]
+        if pos is None:                                # prefill: write [0:s]
+            kk, vv = k, v
+            if W < s:                                  # local ring: tail only
+                kk, vv = kk[:, :, -W:], vv[:, :, -W:]
+                # slot of absolute position p is p % W: place the tail so
+                # decode's `pos % W` indexing continues consistently
+                shift = (s - W) % W
+                kk = torch.roll(kk, shift, dims=2)
+                vv = torch.roll(vv, shift, dims=2)
+            cache["k"][:, :, :kk.shape[2]] = kk
+            cache["v"][:, :, :vv.shape[2]] = vv
+            # attention over just the fresh kv (standard causal prefill)
+        else:                                          # decode: write at pos
+            # Ring-buffer write: local-attention layers keep only a
+            # window-sized cache (W < max_len) and wrap; softmax is
+            # permutation-invariant so slot order inside the ring is
+            # irrelevant, only validity (kv_len) matters.  Full caches
+            # (W == max_len) reduce to the ordinary absolute write.  The
+            # start is clamped as dynamic_update_slice clamps it.
+            wpos = min(pos % W, W - s)
+            cache["k"][:, :, wpos:wpos + s] = k
+            cache["v"][:, :, wpos:wpos + s] = v
+            k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+            kv_len = min(pos + 1, W)
+            q_off = pos
+            causal = False                 # ring entries are all <= pos
+            window = None                  # the ring IS the window
+
+    out = common.chunked_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_off, kv_len=kv_len)
+    out = out.transpose(1, 2).reshape(b, s, nh * hd)
+    return _proj(out, p["wo"]), cache
+
+
+def ffn_defs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    mult = 2 if cfg.ffn_kind == "swiglu" else 1
+    return {"wi": ParamDef((d, mult * f), ("fsdp", "mlp")),
+            "wo": ParamDef((f, d), ("mlp", "fsdp"))}
+
+
+def ffn_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = x @ p["wi"].to(x.dtype)
+    h = common.logical(h, ("batch", "act_seq", "mlp"))
+    if cfg.ffn_kind == "swiglu":
+        u, g = torch.chunk(h, 2, dim=-1)
+        h = common.activation("swiglu", g) * u
+    else:
+        h = common.activation(cfg.ffn_kind, h)
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# block dispatch
+# ---------------------------------------------------------------------------
+
+
+def _attn_only(cfg: ArchConfig, kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: block kind {kind!r}: "
+                                  f"{_RECURRENT_ITEM}")
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: {_MOE_ITEM}")
+
+
+def block_defs(cfg: ArchConfig, kind: str, attn_kind: str) -> Dict:
+    _attn_only(cfg, kind)
+    d = cfg.d_model
+    return {"ln1": common.norm_defs(cfg.norm_kind, d),
+            "attn": attention_defs(cfg),
+            "ln2": common.norm_defs(cfg.norm_kind, d),
+            "ffn": ffn_defs(cfg)}
+
+
+def block_cache(cfg: ArchConfig, kind: str, attn_kind: str, batch: int,
+                max_len: int, dtype: torch.dtype, device) -> Dict:
+    _attn_only(cfg, kind)
+    # local-attention layers keep a ring buffer of exactly the window
+    # (attention_apply wraps the write position)
+    s = min(max_len, cfg.local_window) if attn_kind == "local" else max_len
+    shape = (batch, cfg.n_kv_heads, s, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                attn_kind: str, *, cache=None, pos: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Returns (x_out, new_cache, aux_loss)."""
+    _attn_only(cfg, kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    window = cfg.local_window if attn_kind == "local" else None
+    h = common.norm(cfg.norm_kind, x, p["ln1"])
+    a, new_cache = attention_apply(p["attn"], h, cfg, causal=True,
+                                   window=window, cache=cache, pos=pos)
+    x = x + a
+    h = common.norm(cfg.norm_kind, x, p["ln2"])
+    x = x + ffn_apply(p["ffn"], h, cfg)
+    x = common.logical(x, ("batch", "act_seq", "act_embed"))
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# full LM
+# ---------------------------------------------------------------------------
+
+
+def lm_defs(cfg: ArchConfig) -> Dict:
+    pat, n_groups, rem = group_layout(cfg)
+    group = {f"b{j}": block_defs(cfg, bk, ak)
+             for j, (bk, ak) in enumerate(pat)}
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "fsdp"),
+                          scale=0.02),
+        "final_norm": common.norm_defs(cfg.norm_kind, cfg.d_model),
+    }
+    if n_groups:
+        defs["groups"] = stack_defs(group, n_groups)
+    if rem:
+        defs["rem"] = {f"b{j}": block_defs(cfg, *pat[j]) for j in range(rem)}
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((cfg.d_model, cfg.padded_vocab),
+                                ("fsdp", "vocab"))
+    return defs
+
+
+def _adtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _embed(params, cfg, tokens, embeds=None):
+    x = params["embed"][tokens.long()].to(_adtype(cfg))
+    if cfg.family in ("dense", "moe", "hybrid"):
+        # the constant rounded to the activation dtype first, as
+        # jnp.asarray(sqrt(d), x.dtype) is (on the host: no device sync)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+    if embeds is not None:                    # vlm/audio stub front-end
+        n = embeds.shape[1]
+        x = torch.cat([embeds.to(x.dtype), x[:, n:]], dim=1)
+    return common.logical(x, ("batch", "act_seq", "act_embed"))
+
+
+def _head(params, cfg, x):
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    logits = x @ w.to(x.dtype)
+    logits = common.softcap(logits.float(), cfg.logits_softcap)
+    return common.mask_padded_vocab(logits, cfg.vocab_size)
+
+
+def _layers(params, caches, pat, n_groups, rem):
+    """(block params, block cache or None, block kind, attn kind) for every
+    layer in order: the stacked groups, then the remainder."""
+    for g in range(n_groups):
+        gp = common.tree_index(params["groups"], g)
+        gc = common.tree_index(caches["groups"], g) if caches else None
+        for j, (bk, ak) in enumerate(pat):
+            yield gp[f"b{j}"], gc[f"b{j}"] if gc else None, bk, ak
+    for j in range(rem):
+        c = caches["rem"][f"b{j}"] if caches else None
+        yield params["rem"][f"b{j}"], c, *pat[j]
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
+            embeds: Optional[torch.Tensor] = None,
+            caches: Optional[Dict] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Train (caches=None) / prefill (caches=init, filled in place).
+    Returns (logits, caches, aux)."""
+    pat, n_groups, rem = group_layout(cfg)
+    x = _embed(params, cfg, tokens, embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp, bc, bk, ak in _layers(params, caches, pat, n_groups, rem):
+        x, _, a = block_apply(bp, x, cfg, bk, ak, cache=bc)
+        aux_total = aux_total + a
+    x = common.norm(cfg.norm_kind, x, params["final_norm"])
+    logits = common.logical(_head(params, cfg, x),
+                            ("batch", "act_seq", "vocab"))
+    return logits, caches, aux_total
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> Dict:
+    pat, n_groups, rem = group_layout(cfg)
+    out: Dict[str, Any] = {}
+    if n_groups:
+        out["groups"] = {
+            f"b{j}": common.tree_map(
+                lambda a: a.unsqueeze(0).repeat(
+                    (n_groups,) + (1,) * a.dim()),
+                block_cache(cfg, bk, ak, batch, max_len, dtype, device))
+            for j, (bk, ak) in enumerate(pat)}
+    if rem:
+        out["rem"] = {f"b{j}": block_cache(cfg, *pat[j], batch, max_len,
+                                           dtype, device)
+                      for j in range(rem)}
+    return out
+
+
+def decode_step(params: Dict, caches: Dict, tokens: torch.Tensor, pos: int,
+                cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+    """One-token step. tokens: (b, 1) int; pos: host int (current cache
+    length).  Returns (logits (b, 1, vocab), caches updated in place)."""
+    pat, n_groups, rem = group_layout(cfg)
+    x = _embed(params, cfg, tokens)
+    for bp, bc, bk, ak in _layers(params, caches, pat, n_groups, rem):
+        x, _, _ = block_apply(bp, x, cfg, bk, ak, cache=bc, pos=int(pos))
+    x = common.norm(cfg.norm_kind, x, params["final_norm"])
+    return _head(params, cfg, x), caches
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Forward-only loss (no backward kernels yet: the training slice)."""
+    logits, _, aux = forward(params, batch["tokens"], cfg,
+                             embeds=batch.get("embeds"))
+    ce = common.cross_entropy(logits, batch["labels"])
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}

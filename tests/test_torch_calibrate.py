@@ -48,7 +48,8 @@ def test_slice_spec_covers_the_full_width_kernel_shapes():
     assert set(microbench.QWEN_LAYER_SHAPES) <= set(spec.pallas_shapes)
     assert set(spec.gemm_shapes) <= set(spec.pallas_shapes)
     kinds = {p.kind for p in microbench.enumerate_points(spec)}
-    assert kinds == {"gemm", "gemm_pallas", "elementwise"}
+    assert kinds == {"gemm", "gemm_pallas", "elementwise", "prefill",
+                     "decode_step"}
 
 
 def _records(seed=0):
@@ -165,7 +166,10 @@ def test_validation_report_matches(params):
 
 def test_unported_kinds_raise():
     spec = microbench.MeasureSpec(suite="full", collective_bytes=(1 << 10,),
-                                  model_archs=("qwen1.5-0.5b",), reps=1)
-    for pt in microbench.enumerate_points(spec):
+                                  model_archs=("qwen1.5-0.5b",),
+                                  model_phases=("train_step",), reps=1)
+    points = microbench.enumerate_points(spec)
+    assert [p.kind for p in points] == ["collective", "train_step"]
+    for pt in points:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             microbench.measure_point(pt, spec, device=CPU)

@@ -1,0 +1,162 @@
+"""The port's LM runtime against the reference's, on the CPU.
+
+The reference initialises the weights (``build_model(cfg).init(
+PRNGKey(0))``); they cross to the port through
+``convert.params_from_numpy``.  Both run the same numpy-seeded tokens:
+``forward`` logits, the caches a prefill writes, eight ``decode_step``
+logits and the caches after them (gemma3 decodes past its 32-entry local
+ring: prompt 40 + 8 steps).  Float32 runs are held to rtol/atol 1e-4 on
+the logits; bfloat16 runs (the configured dtype) to 3e-2 of max |logit|.
+Caches are bfloat16 in both dtypes, so they are held to one bfloat16
+rounding step (1e-2 of max |value|) in float32 and to 3e-2 in bfloat16.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as ref_get_config
+from repro.configs.base import reduced as ref_reduced
+from repro.models import build_model as ref_build_model
+from repro.models import common as ref_common
+from repro.models import transformer as ref_tf
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.models import build_model, common, transformer
+from repro_torch.models.convert import (cache_from_numpy, params_from_numpy,
+                                        params_to_numpy)
+
+PROMPT, STEPS, BATCH = 40, 8, 2
+
+
+def _cfgs(arch, dtype):
+    return (dataclasses.replace(ref_reduced(ref_get_config(arch)),
+                                dtype=dtype),
+            dataclasses.replace(reduced(get_config(arch)), dtype=dtype))
+
+
+def _close(got, want, dtype, rel_bf16=3e-2):
+    want = np.asarray(want, np.float32)
+    got = np.asarray(got, np.float32)
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert np.abs(got - want).max() <= rel_bf16 * np.abs(want).max()
+
+
+def _close_caches(got_tree, want_tree, dtype):
+    want = jax.tree.leaves(want_tree)
+    got = list(jax.tree.leaves(params_to_numpy(got_tree)))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        tol = (1e-2 if dtype == "float32" else 3e-2) * np.abs(w).max()
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-27b"])
+def test_forward_prefill_decode_match_reference(arch, dtype):
+    ref_cfg, cfg = _cfgs(arch, dtype)
+    ref_model = ref_build_model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    model = build_model(cfg, device="cpu")
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), "cpu")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT + STEPS)).astype(np.int32)
+
+    want = ref_model.forward(ref_params, {"tokens": jnp.asarray(toks)})[0]
+    got = model.forward(params, {"tokens": torch.from_numpy(toks)})[0]
+    assert got.dtype == torch.float32
+    _close(got, want, dtype)
+
+    max_len = PROMPT + STEPS
+    _, ref_caches, _ = ref_tf.forward(
+        ref_params, jnp.asarray(toks[:, :PROMPT]), ref_cfg,
+        caches=ref_tf.init_cache(ref_cfg, BATCH, max_len))
+    _, caches, _ = model.forward(
+        params, {"tokens": torch.from_numpy(toks[:, :PROMPT])},
+        caches=model.init_cache(BATCH, max_len))
+    _close_caches(caches, ref_caches, dtype)
+
+    # each side decodes from its own prefill; then from the reference's
+    # caches handed over, so a cache difference cannot hide a step's
+    ported = cache_from_numpy(jax.tree.map(np.asarray, ref_caches), "cpu")
+    for t in range(PROMPT, PROMPT + STEPS):
+        tok = toks[:, t:t + 1]
+        want, ref_caches = ref_tf.decode_step(
+            ref_params, ref_caches, jnp.asarray(tok),
+            jnp.asarray(t, jnp.int32), ref_cfg)
+        got, caches = model.decode_step(params, caches,
+                                        torch.from_numpy(tok), t)
+        assert tuple(got.shape) == (BATCH, 1, cfg.padded_vocab)
+        _close(got, want, dtype)
+        got2, ported = model.decode_step(params, ported,
+                                         torch.from_numpy(tok), t)
+        _close(got2, want, dtype)
+    _close_caches(caches, ref_caches, dtype)
+    _close_caches(ported, ref_caches, dtype)
+
+
+def _shapes(tree, is_leaf=None):
+    return jax.tree.map(lambda d: tuple(d.shape), tree, is_leaf=is_leaf)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-27b"])
+def test_param_tree_matches_reference_at_full_width(arch):
+    ref_defs = ref_build_model(ref_get_config(arch)).defs
+    defs = transformer.lm_defs(get_config(arch))
+    want = _shapes(ref_defs, is_leaf=ref_common.is_def)
+    got = common.tree_map(lambda d: tuple(d.shape), defs)
+    assert got == want
+    ref_leaves = jax.tree.leaves(ref_defs, is_leaf=ref_common.is_def)
+    leaves = list(jax.tree.leaves(defs))
+    assert [(d.shape, d.axes, d.init, d.scale) for d in leaves] == \
+        [(d.shape, d.axes, d.init, d.scale) for d in ref_leaves]
+
+
+def test_weights_round_trip_exactly():
+    ref_cfg, cfg = _cfgs("qwen1.5-0.5b", "bfloat16")
+    tree = jax.tree.map(np.asarray,
+                        ref_build_model(ref_cfg).init(jax.random.PRNGKey(1)))
+    back = params_to_numpy(params_from_numpy(tree, "cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    caches = jax.tree.map(
+        np.asarray, ref_tf.init_cache(ref_cfg, 1, 4, jnp.bfloat16))
+    caches = jax.tree.map(lambda a: (a + 1.5).astype(a.dtype), caches)
+    port = cache_from_numpy(caches, "cpu")
+    assert all(t.dtype == torch.bfloat16
+               for t in jax.tree.leaves(port))
+    for a, b in zip(jax.tree.leaves(params_to_numpy(port)),
+                    jax.tree.leaves(caches)):
+        assert np.array_equal(a, np.asarray(b, np.float32))
+
+
+def test_tree_init_matches_reference_statistics():
+    """Same shapes, scales and leaf order; the bits are torch's."""
+    _, cfg = _cfgs("qwen1.5-0.5b", "float32")
+    model = build_model(cfg, device="cpu")
+    a, b = model.init(0), model.init(0)
+    for x, y, d in zip(jax.tree.leaves(a), jax.tree.leaves(b),
+                       jax.tree.leaves(model.defs)):
+        assert tuple(x.shape) == d.shape and torch.equal(x, y)
+        if d.init == "normal":
+            fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+            want = d.scale if d.scale is not None else fan_in ** -0.5
+            assert abs(float(x.std()) / want - 1) < 0.1
+        else:
+            assert float(x.abs().max()) == (1.0 if d.init == "ones" else 0.0)
+
+
+def test_unported_families_raise():
+    for arch in ("recurrentgemma-2b", "xlstm-125m", "qwen2-moe-a2.7b",
+                 "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(reduced(get_config(arch)), device="cpu")

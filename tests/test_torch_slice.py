@@ -153,16 +153,26 @@ def _chip_smoke():
 
 def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     cs = _chip_smoke()
-    rows = cs.run(torch.device("cpu"), microbench.MeasureSpec(**TINY),
-                  tmp_path / "cs", cs.UNIT_SHAPES[:2], (), steps=3,
-                  starts=2)
+    spec = microbench.MeasureSpec(**dict(
+        TINY, model_archs=("qwen1.5-0.5b",),
+        model_phases=("prefill", "decode_step"), model_seq=16))
+    rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs",
+                  cs.UNIT_SHAPES[:2], (), cs.ATTN_UNIT[-3:] + cs.ATTN_PATH[-2:],
+                  (), dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
+                  16, steps=3, starts=2)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
-    assert [r["name"] for r in rows] == ["gemm"] and rows[0]["launches"] == 0
-    assert set(rows[0]) == {"name", "route", "source", "replaces",
+    assert "decode_step" in out and "plan RC-1-1-d1-p1" in out
+    assert [r["name"] for r in rows] == ["gemm", "flash_attention"]
+    for row in rows:
+        assert row["launches"] == 0
+        assert set(row) == {"name", "route", "source", "replaces",
                             "launches", "max_abs_err", "ms", "plain_ms",
                             "bound_ms", "bound_by", "library_ms"}
-    assert (REPO / rows[0]["source"]).is_file()
+        assert (REPO / row["source"]).is_file()
+        path, line = row["replaces"].split(":")
+        assert "pallas_call" in (REPO / path).read_text().splitlines()[
+            int(line) - 1]
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
@@ -191,6 +201,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    walked = {f.parent.name for f in files}
+    assert {"core", "kernels", "calibrate", "models", "launch"} <= walked
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
