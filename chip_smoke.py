@@ -6,8 +6,10 @@
 drives the port's main paths on the card, through the functions a user
 calls: measure -> fit -> profile -> report -> validate
 (``python -m repro_torch.pathfind calibrate|validate``), a full-size
-CrossFlow prediction, and serving full-width qwen1.5-0.5b
-(``python -m repro_torch.launch.serve``):
+CrossFlow prediction, serving full-width qwen1.5-0.5b
+(``python -m repro_torch.launch.serve``), and the recurrent families at
+full width (``Model.prefill`` and ``serve`` of recurrentgemma-2b and
+xlstm-125m):
 
   1. setup     prints the card's name and power limit and builds every
                CUDA kernel of the paths from ``src/repro_torch/kernels/csrc``
@@ -16,13 +18,17 @@ CrossFlow prediction, and serving full-width qwen1.5-0.5b
   2. kernels   runs each kernel against its plain PyTorch version at the
                unit-test shapes and every shape the main paths give it
                (f32 and bf16, two block shapes each): the GEMM at the
-               full-width qwen1.5-0.5b layer GEMMs, flash attention at the
-               full-width prefill (2, 16, 2048, 2048, 64) and decode
-               (8, 16, 1, 160, 64) shapes and the calibration suite's
-               reduced ones; then times kernel, plain version and the
-               library call (torch.matmul, F.scaled_dot_product_attention)
-               at the full-width shapes, each from a CUDA-graph replay
-               timed with CUDA events, beside the card's bound;
+               full-width qwen1.5-0.5b layer GEMMs; flash attention at the
+               full-width qwen1.5-0.5b (d 64) and recurrentgemma-2b (d 256)
+               prefill and decode shapes and the calibration suite's
+               reduced ones; the RG-LRU scan at recurrentgemma-2b's
+               (2, 2048, 2560); the mLSTM parallel form at xlstm-125m's
+               (2, 4, 2048, 192); then times kernel, plain version and the
+               library call where one PyTorch call computes the same
+               function (torch.matmul, F.scaled_dot_product_attention; none
+               for the scan and the mLSTM) at the full-width shapes, each
+               from a CUDA-graph replay timed with CUDA events, beside the
+               card's bound;
   3. calibrate the ``slice`` measurement suite on the tpu_v5e template: the
                quick cuBLAS GEMMs, the hand-written GEMM at the same shapes
                plus the full-width ones, bandwidth probes, the reduced
@@ -36,21 +42,27 @@ CrossFlow prediction, and serving full-width qwen1.5-0.5b
                seed): ``serve(batch=8, prompt_len=128, gen=32)``, then a
                2048-token prompt forwarded 2047 tokens into a cache and
                stepped once, whose logits must match the last position of
-               a 2048-token forward.
+               a 2048-token forward, and a profiled decode window;
+  6. recurrent recurrentgemma-2b and xlstm-125m at full width (random
+               weights from seed 0), each: ``Model.prefill`` of a batch-2,
+               2048-token prompt (timed), ``serve(batch=8, prompt_len=128,
+               gen=32)``, the same 2047 + 1 against 2048 consistency check,
+               and a profiled decode window.
 
-Every kernel's launch count is zeroed just before phases 3-5 and read just
-after; each must have risen by exactly the count the paths imply.  Any
-failure exits non-zero.  The last two lines of standard output are a JSON
-line of kernel results and the device line
-``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before them
-is the card's name and power limit as nvidia-smi gives them.  Without a
-CUDA device, or without ``src/repro_torch`` beside it, the script exits
-non-zero and prints no result.
+Every kernel's launch count is zeroed just before phases 3-5 and again
+just before phase 6, and read just after each; each must have risen by
+exactly the count the paths imply.  Any failure exits non-zero.  The last
+two lines of standard output are a JSON line of kernel results and the
+device line ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line
+before them is the card's name and power limit as nvidia-smi gives them.
+Without a CUDA device, or without ``src/repro_torch`` beside it, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import shutil
@@ -77,6 +89,12 @@ KERNELS = {     # name -> what the JSON line says about it
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:100"},
+    "rglru_scan": {"route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "replaces": "src/repro/kernels/rglru.py:50"},
+    "mlstm_parallel": {"route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+                       "replaces": "src/repro/kernels/mlstm.py:93"},
 }
 
 
@@ -99,7 +117,11 @@ ATTN_UNIT = (   # tests/test_torch_attention.py and test_torch_card.py
     ((1, 4, 2, 16, 64, 64), dict(causal=True, q_offset=48)),
     *(((2, 4, 2, 1, 64, 32), dict(causal=False, q_offset=n - 1, kv_len=n))
       for n in (1, 17, 64)),
+    ((1, 10, 1, 300, 300, 256), dict(causal=True)),     # head dim 256
+    ((2, 4, 1, 256, 256, 256), dict(causal=True, window=64)),
+    ((1, 4, 2, 16, 64, 256), dict(causal=True, q_offset=100, window=32)),
 )
+RG_WINDOW = 2048        # recurrentgemma-2b's local window
 ATTN_PATH = (   # the shapes the main paths give the kernel
     ((2, 16, 16, 2048, 2048, 64), dict(causal=True)),   # full-width prefill
     *(_decode(8, 16, 160, 64, n) for n in (1, 80, 160)),  # phase-5 serve
@@ -107,12 +129,47 @@ ATTN_PATH = (   # the shapes the main paths give the kernel
     _decode(2, 16, 2048, 64, 2048),
     ((2, 4, 4, 128, 128, 32), dict(causal=True)),       # phase-3 prefill
     _decode(2, 4, 128, 32, 128),                        # phase-3 decode
+    # phase 6, recurrentgemma-2b: prefill 2048 / 2047 (local, window 2048),
+    # serve's decode over a 160-slot ring, the check's decode at 2048
+    ((2, 10, 1, 2048, 2048, 256), dict(causal=True, window=RG_WINDOW)),
+    ((2, 10, 1, 2047, 2047, 256), dict(causal=True, window=RG_WINDOW)),
+    *(((8, 10, 1, 1, 160, 256), dict(causal=False, q_offset=n - 1, kv_len=n))
+      for n in (1, 80, 160)),
+    ((2, 10, 1, 1, 2048, 256), dict(causal=False, q_offset=2047,
+                                    kv_len=2048)),
 )
-ATTN_TIMED = (ATTN_PATH[0], ATTN_PATH[3])   # full-width prefill, decode
+# full-width prefill and decode: qwen1.5-0.5b (d 64), recurrentgemma (d 256)
+ATTN_TIMED = (ATTN_PATH[0], ATTN_PATH[3], ATTN_PATH[8], ATTN_PATH[12])
 ATTN_BLOCKS = ((128, 128), (32, 64))
 ATTN_TOLS = {"float32": 2e-3, "bfloat16": 3e-2}    # rtol = atol
+# the RG-LRU scan: (batch, seq, width); the tests' shapes, then
+# recurrentgemma-2b's prefill (2048) and phase 6's check (2047) at width
+# 2560.  The scan sums in the plain version's order: rtol 1e-5.
+RGLRU_UNIT = ((1, 128, 64), (2, 256, 128), (3, 96, 32), (2, 7, 37),
+              (1, 1, 64))
+RGLRU_PATH = ((2, 2048, 2560), (2, 2047, 2560))
+RGLRU_BLOCKS = (128, 16)
+RGLRU_TOLS = (1e-5, 1e-6)                           # rtol, atol
+# the mLSTM parallel form: (b, h, s, d); the tests' shapes, then
+# xlstm-125m's prefill (2048) and phase 6's check (2047), 4 heads of 192
+MLSTM_UNIT = ((1, 2, 128, 64), (2, 4, 256, 32), (1, 2, 1, 32),
+              (2, 4, 100, 192), (1, 1, 77, 128))
+MLSTM_PATH = ((2, 4, 2048, 192), (2, 4, 2047, 192))
+MLSTM_BLOCKS = ((128, 128), (32, 64))
+MLSTM_TOLS = {"float32": 3e-3, "bfloat16": 3e-2}   # rtol = atol
 SERVE = dict(batch=8, prompt_len=128, gen=32, use_reduced=False)
 CHECK_LEN = 2048        # phase 5's prefill-vs-decode consistency prompt
+RECURRENT = dict(archs=("recurrentgemma-2b", "xlstm-125m"), prefill=(2, 2048),
+                 serve=dict(batch=8, prompt_len=128, gen=32),
+                 check_len=2048, use_reduced=False)
+# Archs whose bf16 stack is chaotic: an mLSTM output divides by a
+# denominator that can come near zero, so one bf16 rounding in a layer's
+# input moves the logits by tens of percent (the reference's own bf16
+# logits of the reduced xlstm-125m lie 47 % of max |logit| from its f32
+# ones: tests/test_torch_models.py).  There the stack's check runs in f32
+# activations, and each mLSTM layer's kernel is held to its decode
+# recurrence in bf16 on that layer's input.
+CHAOTIC_BF16 = ("xlstm-125m",)
 
 
 def _port():
@@ -136,8 +193,9 @@ def phase_setup() -> None:
     print("== phase 1: setup")
     print(card_line())
     t0 = time.perf_counter()
-    logs = build.build(list(KERNELS))
-    print(f"# built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f}s")
+    sources = [Path(k["source"]).stem for k in KERNELS.values()]
+    logs = build.build(sources)
+    print(f"# built {', '.join(sources)} in {time.perf_counter() - t0:.1f}s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "ptxas" in line or "spill" in line:
@@ -318,6 +376,135 @@ def phase_attention(device, cmp_cases, timed_cases) -> dict:
     return {"max_abs_err": max_abs["bfloat16"], "timing": timing}
 
 
+def _timing() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0,
+            "bytes": 0.0}
+
+
+def _rglru_inputs(shape, dtype, gen, device):
+    import torch
+    batch, seq, width = shape
+    a = torch.sigmoid(torch.randn(shape, generator=gen, device=device))
+    b = torch.randn(shape, generator=gen, device=device)
+    h0 = torch.randn((batch, width), generator=gen, device=device)
+    return a.to(dtype), b.to(dtype), h0
+
+
+def phase_rglru(device, cmp_shapes, timed_shapes) -> dict:
+    """RG-LRU scan kernel vs `rglru_scan_ref` on the same inputs (a nonzero
+    h0); timings at ``timed_shapes`` in f32, the model path's dtype (the
+    gates are computed in f32).  No one PyTorch call computes a linear
+    recurrence, so the library time is None."""
+    import torch
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels.ref import rglru_scan_ref
+    gen = torch.Generator(device=device).manual_seed(2)
+    rtol, atol = RGLRU_TOLS
+    max_abs = 0.0
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for shape in cmp_shapes:
+            a, b, h0 = _rglru_inputs(shape, dtype, gen, device)
+            want = rglru_scan_ref(a, b, h0)
+            for block_t in RGLRU_BLOCKS:
+                got = rg.rglru_scan(a, b, h0, block_t=block_t)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                assert got.dtype == torch.float32 and got.shape == a.shape, \
+                    (got.dtype, got.shape)
+                err = (got - want).abs().max().item()
+                print(f"  rglru_scan {dname:8s} {shape} block_t={block_t}: "
+                      f"max abs err {err:.3e}")
+                torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+                max_abs = max(max_abs, err)
+    if device.type != "cuda":
+        return {"max_abs_err": max_abs, "timing": None}
+    timing = dict(_timing(), dtype="float32")
+    for shape in timed_shapes:
+        a, b, h0 = _rglru_inputs(shape, torch.float32, gen, device)
+        batch, seq, width = shape
+        ms = _graph_ms(lambda: rg.rglru_scan(a, b, h0), device)
+        # the plain version is a loop of 3 launches per step: few replays
+        plain = _graph_ms(lambda: rglru_scan_ref(a, b, h0), device,
+                          iters=2, reps=2)
+        flops = 2.0 * batch * seq * width
+        nbytes = float(4 * (3 * batch * seq * width + batch * width))
+        bound, by = _bound(flops, nbytes, "float32")
+        print(f"  time rglru_scan float32 {shape}: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
+              f"library none (no one PyTorch call computes a linear "
+              f"recurrence), bound {bound:.5f} ms ({by}), kernel/bound "
+              f"{ms / bound:.1f}x")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("flops", flops),
+                         ("bytes", nbytes)):
+            timing[key] += val
+    return {"max_abs_err": max_abs, "timing": timing}
+
+
+def _mlstm_inputs(shape, dtype, gen, device):
+    import torch
+    import torch.nn.functional as F
+    b, h, s, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+               for _ in range(3))
+    log_f = F.logsigmoid(torch.randn((b, h, s), generator=gen,
+                                     device=device) + 1.0)
+    log_i = 0.3 * torch.randn((b, h, s), generator=gen, device=device)
+    return q, k, v, torch.cumsum(log_f, -1), log_i
+
+
+def phase_mlstm(device, cmp_shapes, timed_shapes) -> dict:
+    """mLSTM kernel vs `mlstm_parallel_ref` on the same inputs; timings at
+    ``timed_shapes`` in bf16, the model path's dtype.  No one PyTorch call
+    computes the stabilised decay-weighted form, so the library time is
+    None (the plain version, a naive einsum / matmul form, is timed as
+    plain)."""
+    import torch
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels.ref import mlstm_parallel_ref
+    gen = torch.Generator(device=device).manual_seed(3)
+    max_abs = {"float32": 0.0, "bfloat16": 0.0}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        tol = MLSTM_TOLS[dname]
+        for shape in cmp_shapes:
+            ins = _mlstm_inputs(shape, dtype, gen, device)
+            want = mlstm_parallel_ref(*ins).float()
+            for bq, bkv in MLSTM_BLOCKS:
+                got = ml.mlstm_parallel(*ins, block_q=bq, block_kv=bkv)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                assert got.dtype == dtype and got.shape == ins[0].shape, \
+                    (got.dtype, got.shape)
+                err = (got.float() - want).abs().max().item()
+                rel = err / max(want.abs().max().item(), 1e-30)
+                print(f"  mlstm_parallel {dname:8s} {shape} blocks=({bq},"
+                      f"{bkv}): max abs err {err:.3e}, rel {rel:.3e}")
+                torch.testing.assert_close(got.float(), want, rtol=tol,
+                                           atol=tol)
+                max_abs[dname] = max(max_abs[dname], err)
+    if device.type != "cuda":
+        return {"max_abs_err": max_abs["bfloat16"], "timing": None}
+    timing = dict(_timing(), dtype="bfloat16")
+    for shape in timed_shapes:
+        b, h, s, d = shape
+        ins = _mlstm_inputs(shape, torch.bfloat16, gen, device)
+        ms = _graph_ms(lambda: ml.mlstm_parallel(*ins), device)
+        plain = _graph_ms(lambda: mlstm_parallel_ref(*ins), device,
+                          iters=4, reps=2)
+        flops = 4.0 * b * h * d * _visible_pairs(s, s)
+        nbytes = float(2 * 4 * b * h * s * d + 4 * 2 * b * h * s)
+        bound, by = _bound(flops, nbytes, "bfloat16")
+        print(f"  time mlstm_parallel bfloat16 {shape}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+              f"library none (no one PyTorch call computes it), bound "
+              f"{bound:.5f} ms ({by}), kernel/bound {ms / bound:.1f}x")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("flops", flops),
+                         ("bytes", nbytes)):
+            timing[key] += val
+    return {"max_abs_err": max_abs["bfloat16"], "timing": timing}
+
+
 def phase_calibrate(device, spec, workdir: Path, steps: int, starts: int):
     import numpy as np
     from repro_torch import pathfind
@@ -395,32 +582,13 @@ def phase_predict(device, profile_path: str) -> None:
               f"L1 {tiling[1]} L0 {tiling[2]}")
 
 
-def phase_serve(device, serve_kw: dict, check_len: int) -> int:
-    """Serve qwen1.5-0.5b through the port's ``launch.serve``, then check
-    prefill (a forward into the cache) against decode (one step).  Returns
-    the flash-attention launches this phase must have made."""
+def _consistency(model, params, device, check_len: int) -> None:
+    """Forward ``check_len - 1`` tokens into a cache, step the last one, and
+    hold its logits to the last position of a ``check_len``-token forward
+    (bf16 tolerance, 3e-2 of max |logit|)."""
     import numpy as np
     import torch
-    from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import build_model
-    cfg = get_config("qwen1.5-0.5b")
-    if serve_kw["use_reduced"]:
-        cfg = reduced(cfg)
-    print(f"== phase 5: serve {cfg.name} ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}x{cfg.resolved_head_dim} heads, "
-          f"vocab {cfg.padded_vocab}) {serve_kw}")
-    out = serve_mod.serve("qwen1.5-0.5b", device=device, **serve_kw)
-    toks = out["tokens"]
-    assert toks.shape == (serve_kw["batch"], serve_kw["gen"]), toks.shape
-    assert toks.min() >= 0 and toks.max() < cfg.vocab_size
-    print(f"  plan {out['plan']}: prefill_s {out['prefill_s']:.4f} "
-          f"(stepping {serve_kw['prompt_len']} prompt tokens), decode_s "
-          f"{out['decode_s']:.4f}, tok_per_s {out['tok_per_s']:.1f}")
-    print(f"  first tokens: {toks[0, :8].tolist()} {toks[-1, :8].tolist()}")
-
-    model = build_model(cfg, device)
-    params = model.init(1)
+    cfg = model.cfg
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                             (2, check_len))
     ids = torch.as_tensor(ids, dtype=torch.int32, device=device)
@@ -440,50 +608,202 @@ def phase_serve(device, serve_kw: dict, check_len: int) -> int:
           f"{same * 100:.0f}% of rows")
     assert math.isfinite(err) and bool(torch.isfinite(full).all())
     assert err <= ATTN_TOLS["bfloat16"] * scale, (err, scale)
+
+
+def _mlstm_layers_check(model, params, device, check_len: int) -> int:
+    """Each mLSTM layer on its own input from a ``check_len``-token forward:
+    the parallel form (the kernel) at the last position against the
+    prefill state of the first ``check_len - 1`` positions stepped once by
+    the decode recurrence, at the bf16 tolerance (3e-2 of max |output|).
+    Returns the mLSTM layers checked."""
+    import numpy as np
+    import torch
+    from repro_torch.models import common, transformer, xlstm
+    cfg = model.cfg
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                            (2, check_len))
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=device)
+    worst, n = 0.0, 0
+    with torch.no_grad():
+        x = transformer._embed(params, cfg, ids)
+        for bp, _, kind, akind in transformer._layers(
+                params, None, *transformer.group_layout(cfg)):
+            if kind == "mlstm":
+                h = common.norm(cfg.norm_kind, x, bp["ln1"])
+                full = xlstm.mlstm_apply(bp["mlstm"], h, cfg)[:, -1]
+                state = xlstm.mlstm_prefill_state(bp["mlstm"], h[:, :-1],
+                                                  cfg)
+                step = xlstm.mlstm_decode(bp["mlstm"], h[:, -1:], state,
+                                          cfg)[0][:, 0]
+                err = (step.float() - full.float()).abs().max().item()
+                scale = full.float().abs().max().item()
+                assert math.isfinite(err) and \
+                    err <= ATTN_TOLS["bfloat16"] * scale, (n, err, scale)
+                worst = max(worst, err / scale)
+                n += 1
+            x = transformer.block_apply(bp, x, cfg, kind, akind)[0]
+    print(f"  {n} mLSTM layers, kernel at position {check_len - 1} vs the "
+          f"prefill state + 1 decode step, bf16: worst max abs diff "
+          f"{worst:.2e} of max |output|")
+    return n
+
+
+def _serve(arch: str, device, serve_kw: dict):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as serve_mod
+    out = serve_mod.serve(arch, device=device, **serve_kw)
+    toks = out["tokens"]
+    assert toks.shape == (serve_kw["batch"], serve_kw["gen"]), toks.shape
+    assert toks.min() >= 0 and toks.max() < get_config(arch).vocab_size
+    print(f"  plan {out['plan']}: prefill_s {out['prefill_s']:.4f} "
+          f"(stepping {serve_kw['prompt_len']} prompt tokens), decode_s "
+          f"{out['decode_s']:.4f}, tok_per_s {out['tok_per_s']:.1f}")
+    print(f"  first tokens: {toks[0, :8].tolist()} {toks[-1, :8].tolist()}")
+
+
+def phase_serve(device, serve_kw: dict, check_len: int) -> int:
+    """Serve qwen1.5-0.5b through the port's ``launch.serve``, then check
+    prefill (a forward into the cache) against decode (one step).  Returns
+    the flash-attention launches this phase must have made."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import build_model
+    cfg = get_config("qwen1.5-0.5b")
+    if serve_kw["use_reduced"]:
+        cfg = reduced(cfg)
+    print(f"== phase 5: serve {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}x{cfg.resolved_head_dim} heads, "
+          f"vocab {cfg.padded_vocab}) {serve_kw}")
+    _serve("qwen1.5-0.5b", device, serve_kw)
+    model = build_model(cfg, device)
+    params = model.init(1)
+    _consistency(model, params, device, check_len)
     prof_steps = _profile_decode(model, params, serve_kw, device)
     steps = serve_kw["prompt_len"] + serve_kw["gen"]
     # serve, then forward + step + forward, then the profiled steps
     return cfg.n_layers * (steps + 3 + prof_steps)
 
 
-def _profile_decode(model, params, serve_kw: dict, device) -> int:
-    """Where a serving step's time goes: ``generate`` at the serve batch
-    over a short prompt under torch.profiler (CPU + CUDA); prints wall
-    time and device-busy time per step and the kernels by device time.
-    Returns the decode steps it ran."""
+def phase_recurrent(device, rec: dict) -> dict:
+    """recurrentgemma-2b and xlstm-125m (``rec["archs"]``) through
+    ``Model.prefill`` (timed), ``serve``, the prefill/decode consistency
+    check and a profiled decode window.  Returns the launches per kernel
+    this phase must have made."""
     import numpy as np
     import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import build_model
+    expected = collections.Counter()
+    serve_kw = dict(rec["serve"], use_reduced=rec["use_reduced"])
+    batch, plen = rec["prefill"]
+    for arch in rec["archs"]:
+        cfg = get_config(arch)
+        if rec["use_reduced"]:
+            cfg = reduced(cfg)
+        kinds = collections.Counter(cfg.block_kind(i)
+                                    for i in range(cfg.n_layers))
+        print(f"== phase 6: {cfg.name} ({cfg.n_layers} layers: "
+              f"{dict(kinds)}, d_model {cfg.d_model}, {cfg.n_heads}x"
+              f"{cfg.resolved_head_dim} heads, vocab {cfg.padded_vocab})")
+        t0 = time.perf_counter()
+        model = build_model(cfg, device)
+        params = model.init(0)
+        ids = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, plen)), dtype=torch.int32,
+            device=device)
+        times = []
+        with torch.no_grad():
+            for _ in range(2):              # the first call warms up
+                t1 = time.perf_counter()
+                caches = model.prefill(params, {"tokens": ids})
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                times.append(time.perf_counter() - t1)
+            if device.type == "cuda":       # a third, profiled
+                _device_profile(lambda: model.prefill(params,
+                                                      {"tokens": ids}),
+                                1, f"Model.prefill ({batch}, {plen})")
+        leaves = [t for c in caches.values() for b in c.values()
+                  for t in b.values()]
+        assert all(bool(torch.isfinite(t).all()) for t in leaves)
+        print(f"  Model.prefill ({batch}, {plen}): {times[1] * 1e3:.2f} ms "
+              f"(first call {times[0] * 1e3:.2f} ms), {len(leaves)} cache "
+              f"tensors, all finite")
+        # the prefills (one profiled on the card), the check's forwards
+        forwards = (3 if device.type == "cuda" else 2) + 2
+        layer_checks = 0
+        if arch in CHAOTIC_BF16 and cfg.dtype == "bfloat16":
+            # a pass through the stack, plus a parallel form per layer
+            forwards += 1
+            layer_checks = _mlstm_layers_check(model, params, device,
+                                               rec["check_len"])
+            print("  the stack's check in f32 activations (bf16 is chaotic "
+                  "here):")
+            _consistency(build_model(dataclasses.replace(cfg, dtype="float32"),
+                                     device), params, device,
+                         rec["check_len"])
+        else:
+            _consistency(model, params, device, rec["check_len"])
+        prof_steps = _profile_decode(model, params, serve_kw, device)
+        del params, caches
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"  serve {serve_kw}")
+        _serve(arch, device, serve_kw)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"# phase 6 {cfg.name}: {time.perf_counter() - t0:.2f}s")
+        # decode steps: serve's, the check's one and the profiled ones
+        steps = (serve_kw["prompt_len"] + serve_kw["gen"] + 1 + prof_steps)
+        expected["rglru_scan"] += forwards * kinds["rglru"]
+        expected["mlstm_parallel"] += forwards * kinds["mlstm"] + layer_checks
+        expected["flash_attention"] += (forwards + steps) * kinds["attn"]
+    return expected
+
+
+def _device_profile(fn, n: int, what: str) -> None:
+    """``fn()`` under torch.profiler (CPU + CUDA): prints wall time and
+    device-busy time per each of its ``n`` units of ``what``, the idle
+    share and the kernels by device time."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import generate
-    prompt_len, gen = 4, 8
-    prompts = np.random.default_rng(2).integers(
-        0, model.cfg.vocab_size, (serve_kw["batch"], prompt_len))
-    if device.type != "cuda":
-        generate(model, params, prompts, gen)
-        return prompt_len + gen
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(model, params, prompts, gen)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n = prompt_len + gen
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) is not None
                and "CUDA" in str(e.device_type)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
-        print("  profiled decode steps: the profiler recorded no device "
-              "time (device busy share not measured)")
-        return n
+        print(f"  profiled {what}: the profiler recorded no device time "
+              f"(device busy share not measured)")
+        return
     launches = sum(e.count for e in kernels)
-    print(f"  profiled {n} decode steps at batch {serve_kw['batch']}: wall "
-          f"{wall / n * 1e3:.3f} ms/step (profiler on), device busy "
-          f"{busy_us / n / 1e3:.3f} ms/step, idle share "
+    print(f"  profiled {what}: wall {wall / n * 1e3:.3f} ms each (profiler "
+          f"on), device busy {busy_us / n / 1e3:.3f} ms each, idle share "
           f"{1 - busy_us * 1e-6 / wall:.3f}, {launches / n:.1f} kernel "
-          f"launches/step under {len(kernels)} names")
+          f"launches each under {len(kernels)} names")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / n / 1e3:8.4f} ms/step "
-              f"{e.count / n:6.1f} launches/step  {e.key[:90]}")
+        print(f"    {e.self_device_time_total / n / 1e3:8.4f} ms "
+              f"{e.count / n:6.1f} launches  {e.key[:90]}")
+
+
+def _profile_decode(model, params, serve_kw: dict, device) -> int:
+    """Where a serving step's time goes: ``generate`` at the serve batch
+    over a short prompt, profiled.  Returns the decode steps it ran."""
+    import numpy as np
+    from repro_torch.launch.serve import generate
+    prompt_len, gen = 4, 8
+    prompts = np.random.default_rng(2).integers(
+        0, model.cfg.vocab_size, (serve_kw["batch"], prompt_len))
+    n = prompt_len + gen
+    if device.type != "cuda":
+        generate(model, params, prompts, gen)
+    else:
+        _device_profile(lambda: generate(model, params, prompts, gen), n,
+                        f"{n} decode steps at batch {serve_kw['batch']}")
     return n
 
 
@@ -501,23 +821,42 @@ def _row(name: str, launches: int, res: dict) -> dict:
     return row
 
 
-def run(device, spec, workdir: Path, gemm_cmp, gemm_timed, attn_cmp,
-        attn_timed, serve_kw: dict, check_len: int, steps: int = 80,
+def _reset_launches() -> dict:
+    """Every kernel wrapper's module, its count set to 0."""
+    from repro_torch.kernels import flash_attention, gemm, mlstm, rglru
+    mods = {"gemm": gemm, "flash_attention": flash_attention,
+            "rglru_scan": rglru, "mlstm_parallel": mlstm}
+    for mod in mods.values():
+        mod.reset_launches()
+    return mods
+
+
+def _check_launches(mods: dict, expected: dict, device, what: str) -> dict:
+    got = {name: mod.LAUNCHES for name, mod in mods.items()}
+    if device.type != "cuda":
+        expected = {}                   # the host takes the plain versions
+    for name, n in got.items():
+        print(f"# {name} kernel launches on {what}: {n} (expected "
+              f"{expected.get(name, 0)})")
+        assert n == expected.get(name, 0), (name, n, expected.get(name, 0))
+    return got
+
+
+def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
+        check_len: int, recurrent: dict, steps: int = 80,
         starts: int = 6) -> list:
-    """Phases 2-5; returns the per-kernel result objects."""
+    """Phases 2-6; returns the per-kernel result objects.  ``cases`` maps
+    each kernel to its (compared, timed) cases."""
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import gemm as gemm_mod
     print("== phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
-    results = {"gemm": phase_gemm(device, gemm_cmp, gemm_timed),
-               "flash_attention": phase_attention(device, attn_cmp,
-                                                  attn_timed)}
+    phases = {"gemm": phase_gemm, "flash_attention": phase_attention,
+              "rglru_scan": phase_rglru, "mlstm_parallel": phase_mlstm}
+    results = {name: phases[name](device, *cases[name]) for name in KERNELS}
     t1 = time.perf_counter()
     print(f"# phase 2: {t1 - t0:.2f}s")
-    # the main paths: launch counts from zero, read right after
-    gemm_mod.reset_launches()
-    fa_mod.reset_launches()
+    # the main paths of slices 1 and 2: counts from zero, read right after
+    mods = _reset_launches()
     out = phase_calibrate(device, spec, workdir, steps, starts)
     t2 = time.perf_counter()
     print(f"# phase 3: {t2 - t1:.2f}s (measuring {out.stats.elapsed_s:.2f}s, "
@@ -526,23 +865,25 @@ def run(device, spec, workdir: Path, gemm_cmp, gemm_timed, attn_cmp,
     t3 = time.perf_counter()
     print(f"# phase 4: {t3 - t2:.2f}s")
     serve_launches = phase_serve(device, serve_kw, check_len)
-    print(f"# phase 5: {time.perf_counter() - t3:.2f}s")
-    launches = {"gemm": gemm_mod.LAUNCHES,
-                "flash_attention": fa_mod.LAUNCHES}
+    t4 = time.perf_counter()
+    print(f"# phase 5: {t4 - t3:.2f}s")
     per_point = max(spec.warmup, 1) + max(spec.reps, 1)
     model_layers = sum(reduced(get_config(a)).n_layers
                        for a in spec.model_archs)
-    expected = {
+    launches = _check_launches(mods, {
         "gemm": len(spec.pallas_shapes) * per_point,
         "flash_attention": model_layers * len(spec.model_phases) * per_point
-        + serve_launches}
-    if device.type != "cuda":
-        expected = dict.fromkeys(expected, 0)
-    for name, n in launches.items():
-        print(f"# {name} kernel launches on the main paths: {n} "
-              f"(expected {expected[name]})")
-        assert n == expected[name], (name, n, expected[name])
-    return [_row(name, launches[name], results[name]) for name in KERNELS]
+        + serve_launches}, device, "phases 3-5")
+    # this slice's path: the recurrent families
+    mods = _reset_launches()
+    expected = phase_recurrent(device, recurrent)
+    print(f"# phase 6: {time.perf_counter() - t4:.2f}s")
+    more = _check_launches(mods, expected, device, "phase 6")
+    if device.type == "cuda":
+        for name in ("rglru_scan", "mlstm_parallel"):
+            assert more[name] > 0, f"phase 6 never launched {name}"
+    return [_row(name, launches[name] + more[name], results[name])
+            for name in KERNELS]
 
 
 def main() -> int:
@@ -559,10 +900,15 @@ def main() -> int:
     print(f"# phase 1: {time.perf_counter() - t0:.2f}s")
     spec = microbench.default_spec("slice", reps=3)
     # the unit-test shapes and every shape the main paths give the kernels
-    cmp_shapes = tuple(dict.fromkeys(UNIT_SHAPES + spec.pallas_shapes))
-    kernels = run(device, spec, ROOT / "build" / "chip_smoke",
-                  cmp_shapes, microbench.QWEN_LAYER_SHAPES,
-                  ATTN_UNIT + ATTN_PATH, ATTN_TIMED, SERVE, CHECK_LEN)
+    cases = {
+        "gemm": (tuple(dict.fromkeys(UNIT_SHAPES + spec.pallas_shapes)),
+                 microbench.QWEN_LAYER_SHAPES),
+        "flash_attention": (ATTN_UNIT + ATTN_PATH, ATTN_TIMED),
+        "rglru_scan": (RGLRU_UNIT + RGLRU_PATH, RGLRU_PATH[:1]),
+        "mlstm_parallel": (MLSTM_UNIT + MLSTM_PATH, MLSTM_PATH[:1]),
+    }
+    kernels = run(device, spec, ROOT / "build" / "chip_smoke", cases, SERVE,
+                  CHECK_LEN, RECURRENT)
     print(f"# chip_smoke phases done in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

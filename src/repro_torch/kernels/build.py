@@ -49,27 +49,33 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 
     Returns the compiler's output per name (``-Xptxas -v``: registers,
     shared memory, spills); raises with that output if a build fails."""
+    targets = {name: _target(name) for name in names}   # every source first
     os.makedirs(BUILD_DIR, exist_ok=True)
     logs, procs = {}, {}
-    for name in names:
-        out = _target(name)
-        if os.path.exists(out):
-            logs[name] = f"{out}: up to date"
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)
+    try:
+        for name, out in targets.items():
+            if os.path.exists(out):
+                logs[name] = f"{out}: up to date"
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{log}")
+                continue
+            os.replace(tmp, out)
+    finally:                            # no compiler outlives the call
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

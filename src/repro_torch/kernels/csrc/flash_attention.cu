@@ -40,7 +40,10 @@
 // every shared operand feeds four FMAs; rows are padded by one float, which
 // keeps the strided reads free of bank conflicts; the row max and sum are
 // reduced with half-warp shuffles; fully masked tiles are skipped (half the
-// causal prefill work); the q tiles run heaviest first.  The bound stays
+// causal prefill work); the q tiles run heaviest first.  Head dims 32, 64,
+// 128 and 256 (recurrentgemma-2b); at d = 256 a thread keeps a 4 x 16
+// output block and the block takes 214,016 B of dynamic shared memory (one
+// block per SM, under the 227 KB cap), set with cudaFuncSetAttribute.  The bound stays
 // out of reach for prefill (FFMA, not the tensor cores) and for decode (63
 // of a tile's 64 rows are idle, no split over the cache): mma/wgmma, TMA
 // and split-KV decode are later work.
@@ -276,6 +279,7 @@ int dispatch(const Params& p, int d, int batch_heads, cudaStream_t s) {
         case 32: return launch<T, 32>(p, batch_heads, s);
         case 64: return launch<T, 64>(p, batch_heads, s);
         case 128: return launch<T, 128>(p, batch_heads, s);
+        case 256: return launch<T, 256>(p, batch_heads, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

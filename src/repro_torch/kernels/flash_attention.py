@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _MAX_BATCH_HEADS = 65535        # grid.y limit
 
 LAUNCHES = 0                    # kernel launches since the last reset
@@ -102,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (b, h, sq, d) in q's dtype.  ``window``: keys with q_pos - k_pos
     >= window are masked; ``q_offset``: absolute position of q[0];
     ``kv_len``: keys at positions >= kv_len are masked.  Head dims 32, 64,
-    128; float32 or bfloat16.  CUDA tensors launch the Hopper kernel on the
+    128, 256; float32 or bfloat16.  CUDA tensors launch the Hopper kernel on the
     current stream or raise; CPU tensors take `attention_ref`.  The CUDA
     output is laid out (b, sq, h, d) in memory (a transposed view), which is
     the layout the output projection reads.

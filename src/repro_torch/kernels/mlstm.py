@@ -1,0 +1,129 @@
+"""mLSTM parallel form: the hand-written Hopper kernel and its plain version.
+
+The port of ``repro/kernels/mlstm.py:mlstm_parallel`` (a Pallas TPU
+kernel): xLSTM's stabilised decay-weighted causal linear attention, which
+the mLSTM block (`repro_torch.models.xlstm.mlstm_apply`) runs over a
+prompt.
+
+`mlstm_parallel` launches ``csrc/mlstm.cu`` for CUDA tensors and computes
+`repro_torch.kernels.ref.mlstm_parallel_ref` for CPU tensors; there is no
+other path.  The kernel is compiled with one 64 x 64 tile, so ``block_q``
+/ ``block_kv`` are validated and do not change the output.  `LAUNCHES`
+counts kernel launches: it rises by one where the kernel is launched and
+nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import numbers
+
+import torch
+
+from repro_torch.kernels.ref import mlstm_parallel_ref
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 192)
+_MAX_BATCH_HEADS = 65535        # grid.y limit
+
+LAUNCHES = 0                    # kernel launches since the last reset
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+_LIB = None
+
+
+def _lib():
+    """The kernel's library with its C signature declared (built at first
+    use; never at import)."""
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import build
+        lib = build.library("mlstm")
+        lib.repro_mlstm.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.repro_mlstm.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check(q, k, v, f_cum, log_i, block_q, block_kv):
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
+            or tuple(v.shape) != tuple(q.shape):
+        raise ValueError(f"mlstm_parallel takes q, k, v of one (b, h, s, d) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, d = q.shape
+    if min(b, h, s) < 1:
+        raise ValueError(f"mlstm_parallel: empty input {tuple(q.shape)}")
+    for name, t in (("f_cum", f_cum), ("log_i", log_i)):
+        if tuple(t.shape) != (b, h, s):
+            raise ValueError(f"mlstm_parallel: {name} {tuple(t.shape)} is "
+                             f"not (b, h, s) = {(b, h, s)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"mlstm_parallel: head dim {d} is not one of "
+                         f"{HEAD_DIMS}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"mlstm_parallel takes float32 or bfloat16 q, k, v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (f_cum.is_floating_point() and log_i.is_floating_point()):
+        raise TypeError("mlstm_parallel: f_cum and log_i must be floating")
+    if len({t.device for t in (q, k, v, f_cum, log_i)}) != 1:
+        raise ValueError("mlstm_parallel: inputs on more than one device")
+    for name, val in (("block_q", block_q), ("block_kv", block_kv)):
+        if not isinstance(val, numbers.Integral) or val < 1:
+            raise ValueError(f"mlstm_parallel: bad {name} {val!r}")
+
+
+def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   f_cum: torch.Tensor, log_i: torch.Tensor,
+                   block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """q/k/v: (b, h, s, d); f_cum (cumsum of log f) and log_i: (b, h, s).
+
+    Returns (b, h, s, d) in q's dtype.  Head dims 32, 64, 128, 192; any s;
+    float32 or bfloat16 q, k, v (f_cum and log_i are read in float32).
+    CUDA tensors launch the Hopper kernel on the current stream or raise;
+    CPU tensors take `mlstm_parallel_ref`.  The CUDA output is laid out
+    (b, s, h, d) in memory (a transposed view), the layout the block's
+    output projection reads.
+    """
+    global LAUNCHES
+    _check(q, k, v, f_cum, log_i, block_q, block_kv)
+    b, h, s, d = q.shape
+    if q.device.type == "cpu":
+        return mlstm_parallel_ref(q, k, v, f_cum, log_i)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_parallel: unsupported device {q.device}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("mlstm_parallel: q, k, v need unit stride over the "
+                         "head dim")
+    if b * h > _MAX_BATCH_HEADS:
+        raise ValueError(f"mlstm_parallel: batch x heads = {b * h} exceeds "
+                         f"the kernel's grid ({_MAX_BATCH_HEADS})")
+    f_cum, log_i = f_cum.float(), log_i.float()
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 18)(
+        *(x for t in (q, k, v, out) for x in t.stride()[:3]),
+        *f_cum.stride(), *log_i.stride())
+    # the TPU kernel scales q in q's dtype, the scale rounded to it first
+    scale = torch.tensor(d ** -0.5, dtype=q.dtype).item()
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.repro_mlstm(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            f_cum.data_ptr(), log_i.data_ptr(), ctypes.addressof(strides),
+            b, h, s, d, _DTYPE_CODES[q.dtype], scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"mlstm_parallel kernel launch failed: CUDA error "
+                           f"{rc} ({lib.repro_cuda_error_string(rc).decode()})")
+    LAUNCHES += 1
+    return out

@@ -15,7 +15,10 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gemm
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.mlstm import mlstm_parallel
+from repro_torch.kernels.ref import (attention_ref, mlstm_parallel_ref,
+                                     rglru_scan_ref)
+from repro_torch.kernels.rglru import rglru_scan as rglru_kernel
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor,
@@ -39,3 +42,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                q_offset=q_offset, kv_len=kv_len)
     return attention_ref(q, k, v, causal=causal, window=window,
                          q_offset=q_offset, kv_len=kv_len)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+               use_kernel: bool = False) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h0; fp32 (batch, seq, width)."""
+    if use_kernel:
+        return rglru_kernel(a, b, h0)
+    return rglru_scan_ref(a, b, h0)
+
+
+def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          f_cum: torch.Tensor, log_i: torch.Tensor, use_kernel: bool = False,
+          block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """xLSTM's parallel form; q/k/v (b, h, s, d), f_cum/log_i (b, h, s)."""
+    if use_kernel:
+        return mlstm_parallel(q, k, v, f_cum, log_i, block_q=block_q,
+                              block_kv=block_kv)
+    return mlstm_parallel_ref(q, k, v, f_cum, log_i)

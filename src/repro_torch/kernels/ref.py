@@ -10,7 +10,8 @@ from repro_torch.kernels.gemm import gemm_plain as gemm_ref
 
 NEG_INF = -1e30                 # the masked score, as in both references
 
-__all__ = ["NEG_INF", "attention_ref", "gemm_ref"]
+__all__ = ["NEG_INF", "attention_ref", "gemm_ref", "mlstm_parallel_ref",
+           "rglru_scan_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,3 +46,43 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def mlstm_parallel_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       f_cum: torch.Tensor,
+                       log_i: torch.Tensor) -> torch.Tensor:
+    """Naive decay-weighted causal linear attention (xLSTM parallel form).
+
+    q/k/v: (b, h, s, d); f_cum (F = cumsum log f) and log_i: (b, h, s).
+    a_tj = F_t - F_j + i_j for j <= t (-1e30 above the diagonal), m_t =
+    max_j a_tj, w_tj = exp(a_tj - m_t) (q_t . k_j) d^-1/2, out_t =
+    sum_j w_tj v_j / max(|sum_j w_tj|, exp(-m_t)).  fp32 throughout, the
+    (b, h, s, s) matrices materialised; output in q's dtype.
+    """
+    s, d = q.shape[-2], q.shape[-1]
+    fc, li = f_cum.float(), log_i.float()
+    a = fc[..., :, None] - fc[..., None, :] + li[..., None, :]
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    a = torch.where(causal, a, torch.full((), NEG_INF, device=q.device))
+    m = torch.amax(a, dim=-1, keepdim=True)
+    dmat = torch.exp(a - m)
+    qk = torch.einsum("bhqd,bhkd->bhqk", q.float() * d ** -0.5, k.float())
+    w = qk * dmat
+    num = torch.einsum("bhqk,bhkd->bhqd", w, v.float())
+    den = torch.maximum(torch.abs(torch.sum(w, dim=-1, keepdim=True)),
+                        torch.exp(-m))
+    return (num / den).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h0, a sequential loop over t in fp32
+    (a product, then a sum: the kernel's order).  a/b: (batch, seq, width),
+    h0: (batch, width).  Returns fp32 (batch, seq, width)."""
+    a32, b32 = a.float(), b.float()
+    h = h0.float()
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        out[:, t] = h
+    return out

@@ -1,0 +1,120 @@
+"""RG-LRU scan: the hand-written Hopper kernel and its plain version.
+
+The port of ``repro/kernels/rglru.py:rglru_scan`` (a Pallas TPU kernel):
+the first-order diagonal linear recurrence h_t = a_t h_{t-1} + b_t from a
+given h0, to which recurrentgemma's RG-LRU reduces once its gates are
+computed (`repro_torch.models.rglru`).
+
+`rglru_scan` launches ``csrc/rglru_scan.cu`` for CUDA tensors and computes
+`repro_torch.kernels.ref.rglru_scan_ref` for CPU tensors; there is no other
+path.  The kernel walks the whole sequence in one thread per (batch,
+channel), so ``block_t`` (the TPU kernel's sequence block) is validated,
+clamped like the reference's and recorded in `LAST_BLOCK_T`, and does not
+change the output.  `LAUNCHES` counts kernel launches: it rises by one
+where the kernel is launched and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import numbers
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ref import rglru_scan_ref
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BATCH = 65535              # grid.y limit
+
+LAUNCHES = 0                    # kernel launches since the last reset
+LAST_BLOCK_T: Optional[int] = None
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+_LIB = None
+
+
+def _lib():
+    """The kernel's library with its C signature declared (built at first
+    use; never at import)."""
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import build
+        lib = build.library("rglru_scan")
+        lib.repro_rglru_scan.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.repro_rglru_scan.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _block_t(block_t, seq: int) -> int:
+    """The reference's sequence block: the largest divisor of ``seq`` not
+    above ``block_t``."""
+    if not isinstance(block_t, numbers.Integral) or block_t < 1:
+        raise ValueError(f"rglru_scan: bad block_t {block_t!r}")
+    bt = min(int(block_t), seq)
+    while seq % bt:
+        bt -= 1
+    return bt
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+               block_t: int = 128) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t, h_0 given.
+
+    a/b: (batch, seq, width), float32 or bfloat16 (one dtype); h0: (batch,
+    width), float32 or bfloat16.  Returns float32 (batch, seq, width).
+    CUDA tensors launch the Hopper kernel on the current stream or raise;
+    CPU tensors take `rglru_scan_ref`.
+    """
+    global LAUNCHES, LAST_BLOCK_T
+    if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"rglru_scan takes a and b of one (batch, seq, "
+                         f"width) shape, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    batch, seq, width = a.shape
+    if min(batch, seq, width) < 1:
+        raise ValueError(f"rglru_scan: empty input {tuple(a.shape)}")
+    if tuple(h0.shape) != (batch, width):
+        raise ValueError(f"rglru_scan: h0 {tuple(h0.shape)} is not "
+                         f"(batch, width) = {(batch, width)}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES \
+            or h0.dtype not in _DTYPE_CODES:
+        raise TypeError(f"rglru_scan takes float32 or bfloat16 a, b of one "
+                        f"dtype and h0, got {a.dtype}, {b.dtype}, "
+                        f"{h0.dtype}")
+    if not (a.device == b.device == h0.device):
+        raise ValueError(f"rglru_scan: a, b, h0 on {a.device}, {b.device}, "
+                         f"{h0.device}")
+    LAST_BLOCK_T = _block_t(block_t, seq)
+    if a.device.type == "cpu":
+        return rglru_scan_ref(a, b, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("rglru_scan: a and b must be contiguous")
+    if batch > _MAX_BATCH:
+        raise ValueError(f"rglru_scan: batch {batch} exceeds the kernel's "
+                         f"grid ({_MAX_BATCH})")
+    h0 = h0.to(torch.float32).contiguous()
+    out = torch.empty((batch, seq, width), dtype=torch.float32,
+                      device=a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                                  out.data_ptr(), batch, seq, width,
+                                  _DTYPE_CODES[a.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
+                           f"{rc} ({lib.repro_cuda_error_string(rc).decode()})")
+    LAUNCHES += 1
+    return out

@@ -1,9 +1,11 @@
 """Unified model API: `build_model(cfg, device)` -> `Model` with init / loss /
 forward / prefill / init_cache / decode_step, as ``repro.models.model``.
 
-The port covers the decoder-only attention families; the LSTM baseline and
-the encoder-decoder (whisper) raise NotImplementedError naming the ROADMAP
-item that ports them.  A `Model` holds the device it was built for (the
+The port covers the decoder-only families: attention (dense, GQA,
+local/global), hybrid (recurrentgemma: RG-LRU + local attention) and ssm
+(xLSTM: mLSTM + sLSTM).  MoE, the LSTM baseline and the encoder-decoder
+(whisper) raise NotImplementedError naming the ROADMAP item that ports
+them.  A `Model` holds the device it was built for (the
 card unless the caller asks for ``"cpu"``): `init` and `init_cache` make
 their tensors there, and the step functions run wherever their inputs are.
 """
@@ -40,7 +42,8 @@ class Model:
                                    embeds=batch.get("embeds"), caches=caches)
 
     def prefill(self, params: Dict, batch: Dict) -> Dict:
-        """Caches of a forward over ``batch["tokens"]``, sized to it."""
+        """Caches of a forward over ``batch["tokens"]``, sized to it (KV
+        caches and recurrent states)."""
         b, s = batch["tokens"].shape
         return self.forward(params, batch, caches=self.init_cache(b, s))[1]
 

@@ -8,13 +8,18 @@ leading ``layers`` axis (the reference's tree layout, so weights cross 1:1)
 and applied by a Python loop over that axis where the reference scans; a
 partial remainder group (gemma3: 62 = 6*10 + 2) is applied explicitly.
 
-Every attention call goes through `common.chunked_attention`, that is the
-hand-written flash-attention kernel.  The recurrent blocks (RG-LRU, m/sLSTM)
-and MoE raise NotImplementedError naming the ROADMAP item that ports them.
+Blocks are attention (dense, GQA, local/global), RG-LRU (recurrentgemma,
+`repro_torch.models.rglru`) and mLSTM / sLSTM (xLSTM,
+`repro_torch.models.xlstm`).  Every attention call goes through
+`common.chunked_attention`, that is the hand-written flash-attention
+kernel; the RG-LRU scan and the mLSTM parallel form over a prompt launch
+their own hand-written kernels.  MoE raises NotImplementedError naming the
+ROADMAP item that ports it.
 
 Caches are written in place: `forward` with caches (prefill) and
-`decode_step` update the cache tensors they are given and return the same
-dict, where the reference returns new arrays of equal value.
+`decode_step` update the cache tensors they are given (KV caches and
+recurrent states alike) and return the same dict, where the reference
+returns new arrays of equal value.
 
 Each model exposes:
     lm_defs(cfg)                    ParamDef tree (single source of truth)
@@ -32,10 +37,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import ParamDef
 
-_RECURRENT_ITEM = ("the recurrent blocks (RG-LRU, mLSTM, sLSTM) are not "
-                   "ported yet: ROADMAP queue 1 item 10")
 _MOE_ITEM = ("MoE blocks (models/moe.py) are not ported yet: ROADMAP "
              "queue 1 item 9")
 
@@ -185,49 +190,122 @@ def ffn_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _attn_only(cfg: ArchConfig, kind: str) -> None:
-    if kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: block kind {kind!r}: "
-                                  f"{_RECURRENT_ITEM}")
+def _no_moe(cfg: ArchConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: {_MOE_ITEM}")
 
 
 def block_defs(cfg: ArchConfig, kind: str, attn_kind: str) -> Dict:
-    _attn_only(cfg, kind)
+    _no_moe(cfg)
     d = cfg.d_model
-    return {"ln1": common.norm_defs(cfg.norm_kind, d),
-            "attn": attention_defs(cfg),
-            "ln2": common.norm_defs(cfg.norm_kind, d),
-            "ffn": ffn_defs(cfg)}
+    if kind == "attn":
+        return {"ln1": common.norm_defs(cfg.norm_kind, d),
+                "attn": attention_defs(cfg),
+                "ln2": common.norm_defs(cfg.norm_kind, d),
+                "ffn": ffn_defs(cfg)}
+    if kind == "rglru":
+        return {"ln1": common.norm_defs(cfg.norm_kind, d),
+                "rec": rglru_lib.rglru_defs(cfg),
+                "ln2": common.norm_defs(cfg.norm_kind, d),
+                "ffn": ffn_defs(cfg)}
+    if kind == "mlstm":
+        return {"ln1": common.norm_defs(cfg.norm_kind, d),
+                "mlstm": xlstm_lib.mlstm_defs(cfg)}
+    if kind == "slstm":
+        return {"ln1": common.norm_defs(cfg.norm_kind, d),
+                "slstm": xlstm_lib.slstm_defs(cfg)}
+    raise ValueError(kind)
 
 
 def block_cache(cfg: ArchConfig, kind: str, attn_kind: str, batch: int,
                 max_len: int, dtype: torch.dtype, device) -> Dict:
-    _attn_only(cfg, kind)
-    # local-attention layers keep a ring buffer of exactly the window
-    # (attention_apply wraps the write position)
-    s = min(max_len, cfg.local_window) if attn_kind == "local" else max_len
-    shape = (batch, cfg.n_kv_heads, s, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """A block's decode cache: K/V in ``dtype`` for attention, the fp32
+    recurrent state for the others (as the reference's)."""
+    _no_moe(cfg)
+    if kind == "attn":
+        # local-attention layers keep a ring buffer of exactly the window
+        # (attention_apply wraps the write position)
+        s = min(max_len, cfg.local_window) if attn_kind == "local" \
+            else max_len
+        shape = (batch, cfg.n_kv_heads, s, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "rglru":
+        return rglru_lib.rglru_init_state(cfg, batch, device)
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_init_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm_lib.slstm_init_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def _store(cache: Dict, state: Dict) -> Dict:
+    """Write a recurrent state into the cache's tensors in place (they may
+    be views of a stacked group).  A conv tail shorter than the cache's
+    (a prompt of fewer than ``kw - 1`` tokens) fills its last rows, the
+    rows before it zero."""
+    for key, val in state.items():
+        dst = cache[key]
+        if dst.shape != val.shape:
+            dst.zero_()
+            dst = dst[:, dst.shape[1] - val.shape[1]:]
+        dst.copy_(val)
+    return cache
 
 
 def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
                 attn_kind: str, *, cache=None, pos: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
-    """Returns (x_out, new_cache, aux_loss)."""
-    _attn_only(cfg, kind)
+    """Returns (x_out, new_cache, aux_loss).  Modes: train (no cache),
+    prefill (cache given, no pos), decode (pos given); the cache is
+    updated in place."""
+    _no_moe(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    window = cfg.local_window if attn_kind == "local" else None
     h = common.norm(cfg.norm_kind, x, p["ln1"])
-    a, new_cache = attention_apply(p["attn"], h, cfg, causal=True,
-                                   window=window, cache=cache, pos=pos)
-    x = x + a
-    h = common.norm(cfg.norm_kind, x, p["ln2"])
-    x = x + ffn_apply(p["ffn"], h, cfg)
-    x = common.logical(x, ("batch", "act_seq", "act_embed"))
-    return x, new_cache, aux
+    if kind == "attn":
+        window = cfg.local_window if attn_kind == "local" else None
+        a, new_cache = attention_apply(p["attn"], h, cfg, causal=True,
+                                       window=window, cache=cache, pos=pos)
+        x = x + a
+        h = common.norm(cfg.norm_kind, x, p["ln2"])
+        x = x + ffn_apply(p["ffn"], h, cfg)
+        x = common.logical(x, ("batch", "act_seq", "act_embed"))
+        return x, new_cache, aux
+    if kind == "rglru":
+        if cache is None:                                  # train
+            r = rglru_lib.rglru_apply(p["rec"], h, cfg)
+        elif pos is None:                                  # prefill
+            r, state = rglru_lib.rglru_apply(p["rec"], h, cfg,
+                                             return_state=True)
+            _store(cache, state)
+        else:                                              # decode
+            r, state = rglru_lib.rglru_decode(p["rec"], h, cache, cfg)
+            _store(cache, state)
+        x = x + r
+        h = common.norm(cfg.norm_kind, x, p["ln2"])
+        return x + ffn_apply(p["ffn"], h, cfg), cache, aux
+    if kind == "mlstm":
+        if pos is None:
+            r = xlstm_lib.mlstm_apply(p["mlstm"], h, cfg)
+            if cache is not None:                          # prefill
+                _store(cache, xlstm_lib.mlstm_prefill_state(p["mlstm"], h,
+                                                            cfg))
+        else:                                              # decode
+            r, state = xlstm_lib.mlstm_decode(p["mlstm"], h, cache, cfg)
+            _store(cache, state)
+        return x + r, cache, aux
+    if kind == "slstm":
+        if cache is None:                                  # train
+            r = xlstm_lib.slstm_apply(p["slstm"], h, cfg)
+        elif pos is None:                                  # prefill
+            r, state = xlstm_lib.slstm_apply(p["slstm"], h, cfg,
+                                             return_state=True)
+            _store(cache, state)
+        else:                                              # decode
+            r, state = xlstm_lib.slstm_decode(p["slstm"], h, cache, cfg)
+            _store(cache, state)
+        return x + r, cache, aux
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,11 @@ torch and the port only (the card machine has no JAX), so it runs there:
 
 Inputs come from numpy with a seed; tolerances are the reference's
 (tests/test_kernels.py): GEMM f32 rtol 1e-4 / atol 8e-4, bf16 2e-2 /
-1.6e-1; attention 2e-3 for f32, 3e-2 for bf16.
+1.6e-1; attention 2e-3 for f32, 3e-2 for bf16; mLSTM 3e-3 for f32 and
+3e-2 for bf16 (the kernel rounds the weights to bf16 before w.V, as the
+TPU kernel does, and the plain version does not: one bf16 rounding).  The
+RG-LRU scan sums in the plain version's order, so it is held to rtol 1e-5
+(the TPU kernel's own test allows 1e-4).
 """
 
 import numpy as np
@@ -16,7 +20,10 @@ import torch
 
 from repro_torch.kernels import flash_attention as port_fa
 from repro_torch.kernels import gemm as port_gemm
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels import mlstm as port_mlstm
+from repro_torch.kernels import rglru as port_rglru
+from repro_torch.kernels.ref import (attention_ref, mlstm_parallel_ref,
+                                     rglru_scan_ref)
 
 SHAPES = [(128, 128, 128), (256, 512, 128), (64, 384, 256), (8, 128, 128),
           (256, 256, 1024), (40, 120, 72), (4096, 1024, 2816),
@@ -153,3 +160,135 @@ def test_flash_attention_kernel_strided_inputs_and_refusals():
                                 .transpose(2, 3), k, v)
     with pytest.raises(ValueError):
         port_fa.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 10, 1, 300, 300, 256), dict(causal=True)),          # recurrentgemma
+    ((2, 4, 1, 256, 256, 256), dict(causal=True, window=64)),
+    ((1, 2, 2, 100, 77, 256), dict(causal=False)),
+    ((8, 10, 1, 1, 160, 256), dict(causal=False, q_offset=79, kv_len=80)),
+    ((1, 4, 2, 16, 64, 256), dict(causal=True, q_offset=48)),
+    ((1, 4, 2, 16, 64, 256), dict(causal=True, q_offset=100, window=32)),
+])
+def test_flash_attention_kernel_head_dim_256(shape, kw, dtype):
+    """recurrentgemma-2b's head dim: prefill, window, decode at kv_len,
+    q_offset (the last case leaves every row with no visible key)."""
+    _attn_case(26, shape, dtype, **kw)
+
+
+def _rglru_inputs(seed, batch, seq, width, dev, dtype):
+    rng = np.random.default_rng(seed)
+    a = 1 / (1 + np.exp(-rng.standard_normal((batch, seq, width))))
+    b = rng.standard_normal((batch, seq, width))
+    h0 = rng.standard_normal((batch, width))
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(dev, t)
+                 for x, t in ((a, dtype), (b, dtype), (h0, torch.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
+@pytest.mark.parametrize("batch,seq,width", [
+    (1, 1, 64), (3, 7, 100), (2, 2048, 2560), (1, 333, 37)])
+def test_rglru_scan_kernel_matches_plain(batch, seq, width, dtype):
+    dev = _card()
+    tdt = ATTN_DTYPES[dtype][0]
+    a, b, h0 = _rglru_inputs(30, batch, seq, width, dev, tdt)
+    want = rglru_scan_ref(a, b, h0)
+    before = port_rglru.LAUNCHES
+    for block_t in (1, 16, 128):
+        got = port_rglru.rglru_scan(a, b, h0, block_t=block_t)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == a.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert port_rglru.LAUNCHES == before + 3
+    got = port_rglru.rglru_scan(a, b, h0.to(tdt))        # h0 in a's dtype
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, rglru_scan_ref(a, b, h0.to(tdt)),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_kernel_decay_and_refusals():
+    dev = _card()
+    a = torch.full((1, 64, 16), 0.9, device=dev)
+    h = port_rglru.rglru_scan(a, torch.zeros_like(a),
+                              torch.ones((1, 16), device=dev))[0]
+    norms = torch.linalg.vector_norm(h, dim=-1).cpu().numpy()
+    assert np.all(np.diff(norms) < 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_rglru.rglru_scan(a.expand(2, 64, 16), a.expand(2, 64, 16),
+                              torch.zeros((2, 16), device=dev))
+    with pytest.raises(ValueError):
+        port_rglru.rglru_scan(a, a, torch.zeros((1, 16)))
+    with pytest.raises(TypeError):
+        port_rglru.rglru_scan(a, a.to(torch.bfloat16),
+                              torch.zeros((1, 16), device=dev))
+    with pytest.raises(ValueError, match="block_t"):
+        port_rglru.rglru_scan(a, a, torch.zeros((1, 16), device=dev),
+                              block_t=0)
+
+
+MLSTM_DTYPES = {"float32": (torch.float32, 3e-3),
+                "bfloat16": (torch.bfloat16, 3e-2)}
+
+
+def _mlstm_inputs(seed, b, h, s, d, dev, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d),
+                                                    np.float32)).to(dev, dtype)
+               for _ in range(3))
+    f = rng.standard_normal((b, h, s)).astype(np.float32) + 1.0
+    log_f = torch.nn.functional.logsigmoid(torch.from_numpy(f))
+    log_i = torch.from_numpy(rng.standard_normal((b, h, s))
+                             .astype(np.float32)) * 0.3
+    return q, k, v, torch.cumsum(log_f, -1).to(dev), log_i.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(MLSTM_DTYPES))
+@pytest.mark.parametrize("b,h,s,d", [
+    (1, 2, 128, 64), (2, 4, 256, 32), (1, 2, 1, 32), (2, 4, 100, 192),
+    (2, 4, 2048, 192), (1, 1, 77, 128)])
+def test_mlstm_kernel_matches_plain(b, h, s, d, dtype):
+    dev = _card()
+    tdt, tol = MLSTM_DTYPES[dtype]
+    q, k, v, f_cum, log_i = _mlstm_inputs(40, b, h, s, d, dev, tdt)
+    want = mlstm_parallel_ref(q, k, v, f_cum, log_i).float()
+    before = port_mlstm.LAUNCHES
+    for bq, bkv in ((128, 128), (32, 64)):
+        got = port_mlstm.mlstm_parallel(q, k, v, f_cum, log_i, block_q=bq,
+                                        block_kv=bkv)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt and tuple(got.shape) == tuple(q.shape)
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert port_mlstm.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_strided_inputs_and_refusals():
+    """q, k, v as the block makes them (heads split off a (b, s, h*d)
+    projection) and f_cum / log_i transposed from (b, s, h)."""
+    dev = _card()
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(rng.standard_normal((2, 90, 3, 4, 64), np.float32)
+                         ).to(dev)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    g = torch.from_numpy(rng.standard_normal((2, 90, 4), np.float32)).to(dev)
+    f_cum = torch.cumsum(torch.nn.functional.logsigmoid(g + 1).transpose(1, 2),
+                         -1)
+    log_i = (0.3 * g).transpose(1, 2)
+    got = port_mlstm.mlstm_parallel(q, k, v, f_cum, log_i)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, mlstm_parallel_ref(q, k, v, f_cum, log_i),
+                               rtol=3e-3, atol=3e-3)
+    q96 = torch.zeros((1, 2, 8, 96), device=dev)
+    z = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="head dim 96"):
+        port_mlstm.mlstm_parallel(q96, q96, q96, z, z)
+    with pytest.raises(ValueError, match="unit stride"):
+        port_mlstm.mlstm_parallel(q.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), k, v, f_cum, log_i)
+    with pytest.raises(ValueError):
+        port_mlstm.mlstm_parallel(q, k, v.cpu(), f_cum, log_i)

@@ -4,11 +4,24 @@ The reference initialises the weights (``build_model(cfg).init(
 PRNGKey(0))``); they cross to the port through
 ``convert.params_from_numpy``.  Both run the same numpy-seeded tokens:
 ``forward`` logits, the caches a prefill writes, eight ``decode_step``
-logits and the caches after them (gemma3 decodes past its 32-entry local
-ring: prompt 40 + 8 steps).  Float32 runs are held to rtol/atol 1e-4 on
-the logits; bfloat16 runs (the configured dtype) to 3e-2 of max |logit|.
-Caches are bfloat16 in both dtypes, so they are held to one bfloat16
-rounding step (1e-2 of max |value|) in float32 and to 3e-2 in bfloat16.
+logits and the caches after them (gemma3 and recurrentgemma decode past
+their 32-entry local ring: prompt 40 + 8 steps).  Float32 runs are held to
+rtol/atol 1e-4 on the logits; bfloat16 runs (the configured dtype) to 3e-2
+of max |logit|.  KV caches are bfloat16 in both dtypes, so caches (and the
+fp32 recurrent states beside them) are held to one bfloat16 rounding step
+(1e-2 of max |value|) in float32 and to 3e-2 in bfloat16.
+
+The reduced xlstm-125m is chaotic in bfloat16: its mLSTM output divides by
+a denominator that can come near zero, so a one-rounding difference in a
+block's input can grow by orders of magnitude in an mLSTM block, and the
+reference's own bfloat16 logits lie 47 % of max |logit| from its float32
+ones (test_xlstm_bf16_noise_is_the_references_own holds that premise).  No port
+can match the reference's bfloat16 roundings op for op (the two
+frameworks sum matrix products in other orders), so there each bfloat16
+value is held to the reference's own noise: no further from the
+reference's float32 value than twice the reference's bfloat16 value is,
+plus 3e-2 of max.  The blocks themselves are held to 3e-2 in bfloat16 on
+identical inputs in tests/test_torch_recurrent.py.
 """
 
 import dataclasses
@@ -30,6 +43,8 @@ from repro_torch.models.convert import (cache_from_numpy, params_from_numpy,
                                         params_to_numpy)
 
 PROMPT, STEPS, BATCH = 40, 8, 2
+ARCHS = ["qwen1.5-0.5b", "gemma3-27b", "recurrentgemma-2b", "xlstm-125m"]
+NOISY_BF16 = {"xlstm-125m"}     # chaotic in bfloat16: see the docstring
 
 
 def _cfgs(arch, dtype):
@@ -38,29 +53,62 @@ def _cfgs(arch, dtype):
             dataclasses.replace(reduced(get_config(arch)), dtype=dtype))
 
 
-def _close(got, want, dtype, rel_bf16=3e-2):
+def _close(got, want, dtype, rel_bf16=3e-2, truth=None):
+    """``truth``: the reference's float32 value, where the reference's
+    bfloat16 value is noise (NOISY_BF16)."""
     want = np.asarray(want, np.float32)
     got = np.asarray(got, np.float32)
     assert got.shape == want.shape
-    if dtype == "float32":
+    if truth is not None:
+        truth = np.asarray(truth, np.float32)
+        noise = np.abs(want - truth).max()
+        assert np.abs(got - truth).max() <= \
+            2 * noise + rel_bf16 * np.abs(truth).max()
+    elif dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     else:
         assert np.abs(got - want).max() <= rel_bf16 * np.abs(want).max()
 
 
-def _close_caches(got_tree, want_tree, dtype):
+def _close_caches(got_tree, want_tree, dtype, truth_tree=None):
     want = jax.tree.leaves(want_tree)
     got = list(jax.tree.leaves(params_to_numpy(got_tree)))
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
+    truth = (jax.tree.leaves(truth_tree) if truth_tree is not None
+             else [None] * len(want))
+    assert len(got) == len(want) == len(truth)
+    for g, w, tr in zip(got, want, truth):
         w = np.asarray(w, np.float32)
-        tol = (1e-2 if dtype == "float32" else 3e-2) * np.abs(w).max()
         assert g.shape == w.shape
+        if tr is not None:
+            _close(g, w, dtype, truth=tr)
+            continue
+        tol = (1e-2 if dtype == "float32" else 3e-2) * np.abs(w).max()
         assert np.abs(g - w).max() <= tol
 
 
+def _ref_run(ref_cfg, ref_params, toks):
+    """The reference's forward logits, prefill caches, decode-step logits
+    and final caches (float32 numpy), and the prefill caches as they are."""
+    ref_model = ref_build_model(ref_cfg)
+    out = {"logits": ref_model.forward(ref_params,
+                                       {"tokens": jnp.asarray(toks)})[0]}
+    _, caches, _ = ref_tf.forward(
+        ref_params, jnp.asarray(toks[:, :PROMPT]), ref_cfg,
+        caches=ref_tf.init_cache(ref_cfg, BATCH, PROMPT + STEPS))
+    out["prefill"] = caches
+    out["steps"] = []
+    for t in range(PROMPT, PROMPT + STEPS):
+        logits, caches = ref_tf.decode_step(
+            ref_params, caches, jnp.asarray(toks[:, t:t + 1]),
+            jnp.asarray(t, jnp.int32), ref_cfg)
+        out["steps"].append(logits)
+    out["decoded"] = caches
+    raw = jax.tree.map(np.asarray, out["prefill"])     # bfloat16 kept
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), out), raw
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_reference(arch, dtype):
     ref_cfg, cfg = _cfgs(arch, dtype)
     ref_model = ref_build_model(ref_cfg)
@@ -69,45 +117,65 @@ def test_forward_prefill_decode_match_reference(arch, dtype):
     params = params_from_numpy(jax.tree.map(np.asarray, ref_params), "cpu")
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (BATCH, PROMPT + STEPS)).astype(np.int32)
+    want, ref_caches = _ref_run(ref_cfg, ref_params, toks)
+    truth = None
+    if dtype == "bfloat16" and arch in NOISY_BF16:
+        truth = _ref_run(_cfgs(arch, "float32")[0], ref_params, toks)[0]
 
-    want = ref_model.forward(ref_params, {"tokens": jnp.asarray(toks)})[0]
+    def pick(key, i=None):
+        if truth is None:
+            return None
+        return truth[key] if i is None else truth[key][i]
+
     got = model.forward(params, {"tokens": torch.from_numpy(toks)})[0]
     assert got.dtype == torch.float32
-    _close(got, want, dtype)
+    _close(got, want["logits"], dtype, truth=pick("logits"))
 
-    max_len = PROMPT + STEPS
-    _, ref_caches, _ = ref_tf.forward(
-        ref_params, jnp.asarray(toks[:, :PROMPT]), ref_cfg,
-        caches=ref_tf.init_cache(ref_cfg, BATCH, max_len))
     _, caches, _ = model.forward(
         params, {"tokens": torch.from_numpy(toks[:, :PROMPT])},
-        caches=model.init_cache(BATCH, max_len))
-    _close_caches(caches, ref_caches, dtype)
+        caches=model.init_cache(BATCH, PROMPT + STEPS))
+    _close_caches(caches, want["prefill"], dtype, pick("prefill"))
 
     # each side decodes from its own prefill; then from the reference's
     # caches handed over, so a cache difference cannot hide a step's
-    ported = cache_from_numpy(jax.tree.map(np.asarray, ref_caches), "cpu")
-    for t in range(PROMPT, PROMPT + STEPS):
-        tok = toks[:, t:t + 1]
-        want, ref_caches = ref_tf.decode_step(
-            ref_params, ref_caches, jnp.asarray(tok),
-            jnp.asarray(t, jnp.int32), ref_cfg)
-        got, caches = model.decode_step(params, caches,
-                                        torch.from_numpy(tok), t)
+    ported = cache_from_numpy(ref_caches, "cpu")
+    for i, t in enumerate(range(PROMPT, PROMPT + STEPS)):
+        tok = torch.from_numpy(toks[:, t:t + 1])
+        got, caches = model.decode_step(params, caches, tok, t)
         assert tuple(got.shape) == (BATCH, 1, cfg.padded_vocab)
-        _close(got, want, dtype)
-        got2, ported = model.decode_step(params, ported,
-                                         torch.from_numpy(tok), t)
-        _close(got2, want, dtype)
-    _close_caches(caches, ref_caches, dtype)
-    _close_caches(ported, ref_caches, dtype)
+        _close(got, want["steps"][i], dtype, truth=pick("steps", i))
+        got2, ported = model.decode_step(params, ported, tok, t)
+        _close(got2, want["steps"][i], dtype, truth=pick("steps", i))
+    _close_caches(caches, want["decoded"], dtype, pick("decoded"))
+    _close_caches(ported, want["decoded"], dtype, pick("decoded"))
+
+
+def test_xlstm_bf16_noise_is_the_references_own():
+    """NOISY_BF16's premise, held so that the exemption cannot outlive it:
+    the reference's own bfloat16 logits of the reduced xlstm-125m lie more
+    than 10 % of max |logit| from its float32 ones (47 % at this seed),
+    where qwen1.5-0.5b's lie within the 3e-2 the other archs are held to."""
+    toks = np.random.default_rng(0).integers(
+        0, 512, (BATCH, PROMPT + STEPS)).astype(np.int32)
+    gap = {}
+    for arch in ("xlstm-125m", "qwen1.5-0.5b"):
+        logits = {}
+        for dtype in ("float32", "bfloat16"):
+            ref_cfg = _cfgs(arch, dtype)[0]
+            model = ref_build_model(ref_cfg)
+            params = model.init(jax.random.PRNGKey(0))
+            logits[dtype] = np.asarray(model.forward(
+                params, {"tokens": jnp.asarray(toks)})[0], np.float32)
+        gap[arch] = (np.abs(logits["bfloat16"] - logits["float32"]).max()
+                     / np.abs(logits["float32"]).max())
+    assert gap["xlstm-125m"] > 0.1 and gap["qwen1.5-0.5b"] < 3e-2, gap
 
 
 def _shapes(tree, is_leaf=None):
     return jax.tree.map(lambda d: tuple(d.shape), tree, is_leaf=is_leaf)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_matches_reference_at_full_width(arch):
     ref_defs = ref_build_model(ref_get_config(arch)).defs
     defs = transformer.lm_defs(get_config(arch))
@@ -156,7 +224,10 @@ def test_tree_init_matches_reference_statistics():
 
 
 def test_unported_families_raise():
-    for arch in ("recurrentgemma-2b", "xlstm-125m", "qwen2-moe-a2.7b",
-                 "whisper-large-v3"):
+    """MoE, the encoder-decoder and the LSTM baseline are still to port;
+    the recurrent families build (their parity is held above)."""
+    for arch in ("qwen2-moe-a2.7b", "whisper-large-v3", "paper-lm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(reduced(get_config(arch)), device="cpu")
+    for arch in ("recurrentgemma-2b", "xlstm-125m"):
+        build_model(reduced(get_config(arch)), device="cpu")

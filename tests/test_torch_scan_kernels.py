@@ -1,0 +1,214 @@
+"""The port's RG-LRU scan and mLSTM ops against the reference's, on the CPU.
+
+On the CPU ``ops.rglru_scan`` / ``ops.mlstm`` with ``use_kernel=True``
+take the kernels' plain versions (the CUDA kernels themselves are held to
+those in tests/test_torch_card.py, on the card).  The reference side runs
+its Pallas kernels in interpret mode and its ``ref.py`` oracles, on the
+same numpy-seeded inputs, at ``tests/test_kernels.py``'s shapes and
+tolerances: scan 1e-4 (the plain versions of both packages loop over t in
+fp32, product then sum, so they are held to 1e-5), mLSTM 3e-3 in float32
+and 3e-2 in bfloat16 (the TPU kernel rounds its weights to bfloat16 before
+w.V, the plain version does not).  Flash attention's plain version is
+checked at recurrentgemma's head dim 256.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as ref_ref
+from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.kernels.mlstm import mlstm_parallel as ref_mlstm
+from repro.kernels.rglru import rglru_scan as ref_rglru
+from repro_torch.kernels import mlstm as port_mlstm
+from repro_torch.kernels import ops
+from repro_torch.kernels import rglru as port_rglru
+from repro_torch.kernels.ref import (attention_ref, mlstm_parallel_ref,
+                                     rglru_scan_ref)
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _rglru_inputs(seed, batch, seq, width):
+    rng = np.random.default_rng(seed)
+    a = (1 / (1 + np.exp(-rng.standard_normal((batch, seq, width))))
+         ).astype(np.float32)                                    # 0 < a < 1
+    b = rng.standard_normal((batch, seq, width)).astype(np.float32)
+    h0 = rng.standard_normal((batch, width)).astype(np.float32)
+    return a, b, h0
+
+
+@pytest.mark.parametrize("batch,seq,width", [
+    (1, 128, 64), (2, 256, 128), (3, 96, 32), (2, 7, 37)])
+def test_rglru_scan_matches_reference(batch, seq, width):
+    a, b, h0 = _rglru_inputs(0, batch, seq, width)
+    got = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b),
+                         torch.from_numpy(h0), use_kernel=True)
+    assert got.dtype == torch.float32 and tuple(got.shape) == a.shape
+    want = ref_rglru(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0),
+                     interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4, atol=1e-4)
+    oracle = ref_ref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b),
+                                    jnp.asarray(h0))
+    np.testing.assert_allclose(got.numpy(), _np(oracle), rtol=1e-5,
+                               atol=1e-5)
+    plain = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b),
+                           torch.from_numpy(h0))
+    assert torch.equal(plain, got)
+
+
+def test_rglru_scan_bf16_inputs_widen_to_f32():
+    a, b, h0 = _rglru_inputs(1, 2, 64, 48)
+    ab = [jnp.asarray(x, jnp.bfloat16) for x in (a, b, h0)]
+    want = ref_rglru(*ab, interpret=True)
+    got = ops.rglru_scan(*(torch.from_numpy(_np(x)).to(torch.bfloat16)
+                           for x in ab), use_kernel=True)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seq,bt", [(64, 16), (96, 64), (128, 128),
+                                    (192, 32), (100, 16)])
+def test_rglru_block_invariance(seq, bt):
+    """The output is independent of block_t, which is clamped and recorded
+    as the reference clamps it."""
+    a, b, _ = _rglru_inputs(3, 1, seq, 32)
+    h0 = np.zeros((1, 32), np.float32)
+    got = port_rglru.rglru_scan(torch.from_numpy(a), torch.from_numpy(b),
+                                torch.from_numpy(h0), block_t=bt)
+    want_bt = min(bt, seq)
+    while seq % want_bt:
+        want_bt -= 1
+    assert port_rglru.LAST_BLOCK_T == want_bt
+    want = ref_rglru(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0),
+                     block_t=bt, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, rglru_scan_ref(torch.from_numpy(a),
+                                           torch.from_numpy(b),
+                                           torch.from_numpy(h0)))
+
+
+def test_rglru_decay_property():
+    """With b = 0 the state decays monotonically for 0 < a < 1."""
+    a = torch.full((1, 64, 16), 0.9)
+    h = ops.rglru_scan(a, torch.zeros_like(a), torch.ones((1, 16)),
+                       use_kernel=True)[0]
+    assert np.all(np.diff(torch.linalg.vector_norm(h, dim=-1).numpy()) < 0)
+
+
+def test_rglru_scan_refusals_and_no_launch_on_the_host():
+    a = torch.rand((1, 8, 4))
+    before = port_rglru.LAUNCHES
+    port_rglru.rglru_scan(a, a, torch.zeros((1, 4)))
+    assert port_rglru.LAUNCHES == before            # the plain version
+    with pytest.raises(ValueError, match="h0"):
+        port_rglru.rglru_scan(a, a, torch.zeros((1, 5)))
+    with pytest.raises(ValueError):
+        port_rglru.rglru_scan(a, a[:, :4], torch.zeros((1, 4)))
+    with pytest.raises(TypeError):
+        port_rglru.rglru_scan(a, a.double(), torch.zeros((1, 4)))
+    with pytest.raises(ValueError, match="block_t"):
+        port_rglru.rglru_scan(a, a, torch.zeros((1, 4)), block_t=0)
+
+
+def _mlstm_inputs(seed, b, h, s, d):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32)
+               for _ in range(3))
+    f = rng.standard_normal((b, h, s)).astype(np.float32) + 1.0
+    log_f = -np.logaddexp(0.0, -f).astype(np.float32)        # log sigmoid
+    f_cum = np.cumsum(log_f, axis=-1).astype(np.float32)
+    log_i = (rng.standard_normal((b, h, s)) * 0.3).astype(np.float32)
+    return q, k, v, f_cum, log_i
+
+
+@pytest.mark.parametrize("b,h,s,d", [(1, 2, 128, 64), (2, 4, 256, 32)])
+def test_mlstm_matches_reference(b, h, s, d):
+    ins = _mlstm_inputs(0, b, h, s, d)
+    got = ops.mlstm(*(torch.from_numpy(x) for x in ins), use_kernel=True)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, s, d)
+    want = ref_mlstm(*(jnp.asarray(x) for x in ins), interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=3e-3, atol=3e-3)
+    oracle = ref_ref.mlstm_parallel_ref(*(jnp.asarray(x) for x in ins))
+    np.testing.assert_allclose(got.numpy(), _np(oracle), rtol=3e-3,
+                               atol=3e-3)
+
+
+@pytest.mark.parametrize("bq,bkv", [(32, 32), (64, 32), (128, 64),
+                                    (32, 64)])
+def test_mlstm_block_invariance(bq, bkv):
+    ins = _mlstm_inputs(7, 1, 2, 128, 32)
+    want = ref_mlstm(*(jnp.asarray(x) for x in ins), block_q=bq,
+                     block_kv=bkv, interpret=True)
+    got = port_mlstm.mlstm_parallel(*(torch.from_numpy(x) for x in ins),
+                                    block_q=bq, block_kv=bkv)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=3e-3, atol=3e-3)
+
+
+@pytest.mark.parametrize("s", [1, 100, 130])
+def test_mlstm_head_dim_192_any_length(s):
+    """xlstm-125m's head dim, at lengths that are no multiple of a tile."""
+    ins = _mlstm_inputs(8, 2, 4, s, 192)
+    got = ops.mlstm(*(torch.from_numpy(x) for x in ins), use_kernel=True)
+    want = ref_mlstm(*(jnp.asarray(x) for x in ins), interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=3e-3, atol=3e-3)
+
+
+def test_mlstm_bf16_matches_the_tpu_kernel():
+    ins = _mlstm_inputs(9, 1, 2, 128, 64)
+    qkv = [jnp.asarray(x, jnp.bfloat16) for x in ins[:3]]
+    want = ref_mlstm(*qkv, jnp.asarray(ins[3]), jnp.asarray(ins[4]),
+                     interpret=True)
+    got = ops.mlstm(*(torch.from_numpy(_np(x)).to(torch.bfloat16)
+                      for x in qkv), torch.from_numpy(ins[3]),
+                    torch.from_numpy(ins[4]), use_kernel=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_mlstm_refusals_and_no_launch_on_the_host():
+    q = torch.zeros((1, 2, 8, 32))
+    z = torch.zeros((1, 2, 8))
+    before = port_mlstm.LAUNCHES
+    torch.testing.assert_close(port_mlstm.mlstm_parallel(q, q, q, z, z),
+                               mlstm_parallel_ref(q, q, q, z, z))
+    assert port_mlstm.LAUNCHES == before
+    q96 = torch.zeros((1, 2, 8, 96))
+    with pytest.raises(ValueError, match="head dim 96"):
+        port_mlstm.mlstm_parallel(q96, q96, q96, z, z)
+    with pytest.raises(ValueError, match="f_cum"):
+        port_mlstm.mlstm_parallel(q, q, q, z[:, :1], z)
+    with pytest.raises(TypeError):
+        port_mlstm.mlstm_parallel(q, q, q.double(), z, z)
+    with pytest.raises(ValueError, match="block_q"):
+        port_mlstm.mlstm_parallel(q, q, q, z, z, block_q=0)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 10, 1, 128, 128, 256), dict(causal=True)),
+    ((2, 4, 1, 96, 96, 256), dict(causal=True, window=32)),
+    ((1, 2, 2, 64, 160, 256), dict(causal=False)),
+])
+def test_attention_ref_at_head_dim_256(shape, kw):
+    """recurrentgemma-2b's attention: the plain version against the
+    reference's oracle and its Pallas kernel (interpret mode)."""
+    b, h, hkv, sq, skv, d = shape
+    rng = np.random.default_rng(10)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    got = ops.attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                        use_kernel=True, **kw)
+    want = ref_ref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), **kw)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+    pallas = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), _np(pallas), rtol=2e-3,
+                               atol=2e-3)
+    assert torch.equal(got, attention_ref(*(torch.from_numpy(x)
+                                            for x in (q, k, v)), **kw))

@@ -156,14 +156,24 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     spec = microbench.MeasureSpec(**dict(
         TINY, model_archs=("qwen1.5-0.5b",),
         model_phases=("prefill", "decode_step"), model_seq=16))
-    rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs",
-                  cs.UNIT_SHAPES[:2], (), cs.ATTN_UNIT[-3:] + cs.ATTN_PATH[-2:],
-                  (), dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
-                  16, steps=3, starts=2)
+    cases = {"gemm": (cs.UNIT_SHAPES[:2], ()),
+             "flash_attention": (cs.ATTN_UNIT[-4:] + cs.ATTN_PATH[6:8], ()),
+             "rglru_scan": (cs.RGLRU_UNIT[-2:], ()),
+             "mlstm_parallel": (cs.MLSTM_UNIT[2:4], ())}
+    recurrent = dict(cs.RECURRENT, prefill=(2, 16), check_len=16,
+                     serve=dict(batch=2, prompt_len=4, gen=2),
+                     use_reduced=True)
+    rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
+                  dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
+                  16, recurrent, steps=3, starts=2)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
     assert "decode_step" in out and "plan RC-1-1-d1-p1" in out
-    assert [r["name"] for r in rows] == ["gemm", "flash_attention"]
+    assert "phase 6: recurrentgemma-2b-smoke" in out
+    assert "phase 6: xlstm-125m-smoke" in out
+    assert out.count("Model.prefill (2, 16)") == 2
+    assert [r["name"] for r in rows] == ["gemm", "flash_attention",
+                                         "rglru_scan", "mlstm_parallel"]
     for row in rows:
         assert row["launches"] == 0
         assert set(row) == {"name", "route", "source", "replaces",
