@@ -25,10 +25,11 @@ xlstm-125m):
                (2, 2048, 2560); the mLSTM parallel form at xlstm-125m's
                (2, 4, 2048, 192); then times kernel, plain version and the
                library call where one PyTorch call computes the same
-               function (torch.matmul, F.scaled_dot_product_attention; none
-               for the scan and the mLSTM) at the full-width shapes, each
-               from a CUDA-graph replay timed with CUDA events, beside the
-               card's bound;
+               function (torch.matmul, F.scaled_dot_product_attention with
+               enable_gqa where the head counts differ, printing which of
+               its fused backends take the shape; none for the scan and
+               the mLSTM) at the full-width shapes, each from a CUDA-graph
+               replay timed with CUDA events, beside the card's bound;
   3. calibrate the ``slice`` measurement suite on the tpu_v5e template: the
                quick cuBLAS GEMMs, the hand-written GEMM at the same shapes
                plus the full-width ones, bandwidth probes, the reduced
@@ -98,6 +99,11 @@ KERNELS = {     # name -> what the JSON line says about it
 }
 
 
+# the __global__ names of csrc/*.cu, as the profiler shows them
+PORT_KERNEL_NAMES = ("gemm_kernel", "attn_kernel", "attn_mma_kernel",
+                     "rglru_kernel", "mlstm_kernel")
+
+
 def _decode(b, h, skv, d, kv_len):
     """A decode call: one query at position kv_len - 1 over a cache."""
     return ((b, h, h, 1, skv, d),
@@ -120,6 +126,12 @@ ATTN_UNIT = (   # tests/test_torch_attention.py and test_torch_card.py
     ((1, 10, 1, 300, 300, 256), dict(causal=True)),     # head dim 256
     ((2, 4, 1, 256, 256, 256), dict(causal=True, window=64)),
     ((1, 4, 2, 16, 64, 256), dict(causal=True, q_offset=100, window=32)),
+    # ragged edges of the bf16 tensor-core kernel's 16-row warp tiles and
+    # 32- / 64-key tiles, a window edge inside a tile, GQA group 10
+    ((2, 4, 2, 17, 17, 32), dict(causal=True)),
+    ((1, 2, 1, 15, 15, 256), dict(causal=True)),
+    ((2, 20, 2, 77, 77, 256), dict(causal=True)),
+    ((1, 2, 2, 200, 200, 64), dict(causal=True, window=24)),
 )
 RG_WINDOW = 2048        # recurrentgemma-2b's local window
 ATTN_PATH = (   # the shapes the main paths give the kernel
@@ -319,9 +331,33 @@ def _attn_inputs(shape, dtype, gen, device):
                  for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
 
 
+def _sdpa_backends(q, k, v, causal: bool, gqa: bool) -> str:
+    """Which of SDPA's fused backends take these inputs (each tried once
+    under `sdpa_kernel`); where none does, SDPA runs its math backend,
+    which writes the whole score matrix to memory."""
+    import warnings
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    took = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:    # a refusal raises, after a warning that says why
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                               enable_gqa=gqa)
+            took.append(backend.name.lower())
+        except RuntimeError:
+            pass
+    return ", ".join(took) or "none (math)"
+
+
 def phase_attention(device, cmp_cases, timed_cases) -> dict:
     """Flash-attention kernel vs `attention_ref` on the same inputs;
-    timings at ``timed_cases`` in bf16, the serving path's dtype."""
+    timings at ``timed_cases`` in bf16, the serving path's dtype.  The
+    library call is SDPA with ``enable_gqa`` where the head counts differ,
+    so that its fused backends take the grouped shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -358,18 +394,26 @@ def phase_attention(device, cmp_cases, timed_cases) -> dict:
         q, k, v = _attn_inputs(shape, torch.bfloat16, gen, device)
         kvl = kw.get("kv_len") or skv
         kc, vc = k[:, :, :kvl], v[:, :, :kvl]
+        gqa = h != hkv
         ms = _graph_ms(lambda: fa.flash_attention(q, k, v, **kw), device)
         plain = _graph_ms(lambda: attention_ref(q, k, v, **kw), device)
         lib = _graph_ms(lambda: F.scaled_dot_product_attention(
-            q, kc, vc, is_causal=kw["causal"]), device)
+            q, kc, vc, is_causal=kw["causal"], enable_gqa=gqa), device)
+        backends = _sdpa_backends(q, kc, vc, kw["causal"], gqa)
+        if gqa:     # the yardstick before enable_gqa, for comparison
+            backends += ("; without enable_gqa %.4f ms" % _graph_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, kc, vc, is_causal=kw["causal"]), device))
         flops = 4.0 * b * h * d * _visible_pairs(sq, skv, **kw)
         nbytes = float(2 * (2 * b * h * sq * d + 2 * b * hkv * kvl * d))
         bound, by = _bound(flops, nbytes, "bfloat16")
         print(f"  time flash_attention bfloat16 {shape} {kw}: kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
               f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
-              f"F.scaled_dot_product_attention {lib:.4f} ms, bound "
-              f"{bound:.5f} ms ({by}), kernel/bound {ms / bound:.1f}x")
+              f"F.scaled_dot_product_attention {lib:.4f} ms (enable_gqa="
+              f"{gqa}; fused backends that take it: {backends}), bound "
+              f"{bound:.5f} ms ({by}), kernel/bound {ms / bound:.1f}x, "
+              f"kernel/SDPA {ms / lib:.2f}x")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("flops", flops), ("bytes", nbytes)):
             timing[key] += val
@@ -785,8 +829,12 @@ def _device_profile(fn, n: int, what: str) -> None:
           f"on), device busy {busy_us / n / 1e3:.3f} ms each, idle share "
           f"{1 - busy_us * 1e-6 / wall:.3f}, {launches / n:.1f} kernel "
           f"launches each under {len(kernels)} names")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the eight largest, then the port's own kernels below them
+    for e in ranked[:8] + [e for e in ranked[8:] if any(
+            name in e.key for name in PORT_KERNEL_NAMES)]:
         print(f"    {e.self_device_time_total / n / 1e3:8.4f} ms "
+              f"({e.self_device_time_total / busy_us * 100:4.1f} %) "
               f"{e.count / n:6.1f} launches  {e.key[:90]}")
 
 

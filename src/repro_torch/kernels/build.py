@@ -7,7 +7,8 @@ a build that includes PyTorch's headers takes minutes.  Libraries go to
 the source and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is.  Nothing is built at import: the first call that
 needs a library builds it; `build` builds several at once, one ``nvcc``
-process per source, all started together.
+process per source, all started together.  `refuse_autograd` is the check
+every wrapper makes before it launches: the kernels have no backward yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, Sequence
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -89,3 +92,14 @@ def library(name: str) -> ctypes.CDLL:
             build([name])
             lib = _LIBS[name] = ctypes.CDLL(_target(name))
         return lib
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel's output would need a gradient: the kernels
+    write into fresh tensors through ctypes, so autograd would lose every
+    gradient through them without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP queue 1 "
+            f"item 9); call it under torch.no_grad() or on tensors that do "
+            f"not require grad")

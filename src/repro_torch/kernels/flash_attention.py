@@ -9,10 +9,10 @@ value: the decode loop never synchronises on them).
 
 `flash_attention` launches ``csrc/flash_attention.cu`` for CUDA tensors and
 computes `repro_torch.kernels.ref.attention_ref` for CPU tensors; there is
-no other path.  The kernel is compiled with one 64 x 64 tile, so
-``block_q`` / ``block_kv`` are validated and do not change the output.
-`LAUNCHES` counts kernel launches: it rises by one where the kernel is
-launched and nowhere else.
+no other path.  bf16 runs on the tensor cores (``mma.sync``), f32 on FFMA;
+each kernel picks its own tiles, so ``block_q`` / ``block_kv`` are
+validated and do not change the output.  `LAUNCHES` counts kernel
+launches: it rises by one where the kernel is launched and nowhere else.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,7 +46,6 @@ def _lib():
     use; never at import)."""
     global _LIB
     if _LIB is None:
-        from repro_torch.kernels import build
         lib = build.library("flash_attention")
         lib.repro_flash_attention.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
@@ -92,6 +92,21 @@ def _check(q, k, v, window, block_q, block_kv, q_offset, kv_len):
                          f"got {kv_len!r}")
 
 
+def _check_aligned(q, k, v):
+    """The bf16 kernel copies rows in 16-byte pieces (cp.async): each
+    tensor's data must start 16-byte aligned and each stride over a
+    dimension longer than 1 must be a multiple of 8 elements."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 {name} starts at "
+                             f"{t.data_ptr():#x}, not 16-byte aligned")
+        for dim, (n, s) in enumerate(zip(t.shape[:3], t.stride()[:3])):
+            if n > 1 and s % 8:
+                raise ValueError(
+                    f"flash_attention: bf16 {name} has stride {s} over dim "
+                    f"{dim}, not a multiple of 8 elements (16 bytes)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     block_q: int = 128, block_kv: int = 128,
@@ -103,9 +118,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     >= window are masked; ``q_offset``: absolute position of q[0];
     ``kv_len``: keys at positions >= kv_len are masked.  Head dims 32, 64,
     128, 256; float32 or bfloat16.  CUDA tensors launch the Hopper kernel on the
-    current stream or raise; CPU tensors take `attention_ref`.  The CUDA
-    output is laid out (b, sq, h, d) in memory (a transposed view), which is
-    the layout the output projection reads.
+    current stream or raise (bf16 ones must start 16-byte aligned, with
+    strides that are multiples of 8; inputs that require grad raise under
+    grad mode: the kernel has no backward yet); CPU tensors take
+    `attention_ref`.  The CUDA output is laid out (b, sq, h, d) in memory
+    (a transposed view), which is the layout the output projection reads.
     """
     global LAUNCHES
     _check(q, k, v, window, block_q, block_kv, q_offset, kv_len)
@@ -123,6 +140,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > _MAX_BATCH_HEADS:
         raise ValueError(f"flash_attention: batch x heads = {b * h} exceeds "
                          f"the kernel's grid ({_MAX_BATCH_HEADS})")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
+    build.refuse_autograd("flash_attention", q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_M = 65535 * 128            # grid.y limit times the block tile's rows
 
@@ -60,7 +62,6 @@ def _lib():
     use; never at import)."""
     global _LIB
     if _LIB is None:
-        from repro_torch.kernels import build
         lib = build.library("gemm")
         lib.repro_gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
@@ -112,6 +113,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("gemm: operands must be contiguous (row-major)")
     if m > _MAX_M:
         raise ValueError(f"gemm: m={m} exceeds the kernel's grid ({_MAX_M})")
+    build.refuse_autograd("gemm", x, w)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):

@@ -20,6 +20,7 @@ import numbers
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import mlstm_parallel_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,7 +43,6 @@ def _lib():
     use; never at import)."""
     global _LIB
     if _LIB is None:
-        from repro_torch.kernels import build
         lib = build.library("mlstm")
         lib.repro_mlstm.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -107,6 +107,7 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > _MAX_BATCH_HEADS:
         raise ValueError(f"mlstm_parallel: batch x heads = {b * h} exceeds "
                          f"the kernel's grid ({_MAX_BATCH_HEADS})")
+    build.refuse_autograd("mlstm_parallel", q, k, v, f_cum, log_i)
     f_cum, log_i = f_cum.float(), log_i.float()
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)

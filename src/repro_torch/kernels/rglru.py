@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import rglru_scan_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,7 +45,6 @@ def _lib():
     use; never at import)."""
     global _LIB
     if _LIB is None:
-        from repro_torch.kernels import build
         lib = build.library("rglru_scan")
         lib.repro_rglru_scan.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -104,6 +104,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     if batch > _MAX_BATCH:
         raise ValueError(f"rglru_scan: batch {batch} exceeds the kernel's "
                          f"grid ({_MAX_BATCH})")
+    build.refuse_autograd("rglru_scan", a, b, h0)
     h0 = h0.to(torch.float32).contiguous()
     out = torch.empty((batch, seq, width), dtype=torch.float32,
                       device=a.device)

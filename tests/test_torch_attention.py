@@ -11,6 +11,7 @@ tolerances are the reference's (tests/test_kernels.py): 2e-3 for float32,
 3e-2 for bfloat16.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,6 +122,26 @@ def test_causal_q_offset_matches_chunked_attention(q_offset, window):
     got = common.chunked_attention(tq, tk, tv, causal=True, window=window,
                                    q_offset=q_offset)
     _close(got, want, 2e-3)
+
+
+def test_cpu_branch_keeps_gradients():
+    """On the CPU the wrapper computes its plain version, which autograd
+    differentiates: the gradients of a loss through it are the reference
+    ``chunked_attention``'s (the CUDA branch refuses inputs that require
+    grad instead: tests/test_torch_card.py)."""
+    arrays = _qkv(9, 1, 4, 2, 48, 48, 32)
+    (jq, jk, jv), tensors = _both(arrays, "float32")
+    tensors = [t.requires_grad_() for t in tensors]
+    out = port_fa.flash_attention(*tensors, causal=True, window=16)
+    torch.square(out).sum().backward()
+
+    def loss(q, k, v):
+        return jnp.sum(jnp.square(ref_common.chunked_attention(
+            q, k, v, causal=True, window=16)))
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    for t, w in zip(tensors, want):
+        assert t.grad is not None
+        _close(t.grad, w, 2e-3)
 
 
 def test_launch_counter_stays_zero_on_cpu():

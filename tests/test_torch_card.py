@@ -12,18 +12,29 @@ Inputs come from numpy with a seed; tolerances are the reference's
 TPU kernel does, and the plain version does not: one bf16 rounding).  The
 RG-LRU scan sums in the plain version's order, so it is held to rtol 1e-5
 (the TPU kernel's own test allows 1e-4).
+
+The models on the card are held to the reference's own outputs in
+tests/test_torch_golden.npz (written from CPU JAX by
+tests/test_torch_golden.py) at tests/test_torch_models.py's tolerances:
+1e-4 in float32, 3e-2 of max |logit| in bfloat16.
 """
+
+import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config, reduced
 from repro_torch.kernels import flash_attention as port_fa
 from repro_torch.kernels import gemm as port_gemm
 from repro_torch.kernels import mlstm as port_mlstm
 from repro_torch.kernels import rglru as port_rglru
 from repro_torch.kernels.ref import (attention_ref, mlstm_parallel_ref,
                                      rglru_scan_ref)
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_numpy
 
 SHAPES = [(128, 128, 128), (256, 512, 128), (64, 384, 256), (8, 128, 128),
           (256, 256, 1024), (40, 120, 72), (4096, 1024, 2816),
@@ -114,10 +125,27 @@ def test_flash_attention_kernel_matches_plain(shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
-@pytest.mark.parametrize("window", [32, 128])
+@pytest.mark.parametrize("window", [32, 128, 24])
 def test_flash_attention_kernel_window(window, dtype):
+    """24 puts the window's leading edge inside a 64-key tile."""
     _attn_case(21, (1, 2, 2, 256, 256, 32), dtype, causal=True,
                window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", port_fa.HEAD_DIMS)
+@pytest.mark.parametrize("sq,skv", [(1, 1), (15, 15), (17, 17), (65, 65),
+                                    (100, 77), (300, 300)])
+def test_flash_attention_kernel_bf16_ragged_edges(sq, skv, d):
+    """bf16 (the tensor-core kernel) at lengths that are no multiple of
+    the 16-row warp tile or the 32- / 64-key tile: rows past sq neither
+    load nor store, keys past skv count for nothing; causal where square,
+    and a window of 24 (no multiple of a tile) inside 64-key tiles."""
+    _attn_case(27, (2, 4, 2, sq, skv, d), "bfloat16", causal=sq == skv)
+    if sq == skv:
+        _attn_case(28, (1, 2, 1, sq, skv, d), "bfloat16", causal=True,
+                   window=24)
+
 
 
 @pytest.mark.cuda
@@ -132,12 +160,13 @@ def test_flash_attention_kernel_decode(kv_len, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
 @pytest.mark.parametrize("q_offset,window", [(48, None), (48, 24), (100, 32)])
-def test_flash_attention_kernel_q_offset(q_offset, window):
+def test_flash_attention_kernel_q_offset(q_offset, window, dtype):
     """Causal with q[0] at q_offset; (100, 32) leaves every row with no
     visible key, where the kernel averages every key as the plain version
     does."""
-    _attn_case(24, (1, 4, 2, 16, 64, 64), "float32", causal=True,
+    _attn_case(24, (1, 4, 2, 16, 64, 64), dtype, causal=True,
                q_offset=q_offset, window=window)
 
 
@@ -152,6 +181,15 @@ def test_flash_attention_kernel_strided_inputs_and_refusals():
     torch.cuda.synchronize()
     torch.testing.assert_close(got, attention_ref(q, k, v), rtol=2e-3,
                                atol=2e-3)
+    # bf16 views split off one projection: aligned, not contiguous
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    xb = x.to(torch.bfloat16)
+    qs, ks, vs = (xb[:, :, i].transpose(1, 2) for i in range(3))
+    assert not qs.is_contiguous() and qs.stride(2) % 8 == 0
+    got = port_fa.flash_attention(qs, ks, vs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), attention_ref(qb, kb, vb).float(),
+                               rtol=3e-2, atol=3e-2)
     q96 = torch.zeros((1, 2, 8, 96), device=dev)
     with pytest.raises(ValueError, match="head dim 96"):
         port_fa.flash_attention(q96, q96, q96)
@@ -163,6 +201,31 @@ def test_flash_attention_kernel_strided_inputs_and_refusals():
 
 
 @pytest.mark.cuda
+def test_flash_attention_kernel_refuses_unaligned_bf16():
+    """The bf16 kernel's 16-byte copies need 16-byte rows: the wrapper
+    raises, naming the stride or the start, and launches nothing."""
+    dev = _card()
+    x = torch.zeros((1, 2, 40, 72), dtype=torch.bfloat16, device=dev)
+    q = x[..., :64]
+    assert q.stride(2) == 72
+    ok = torch.zeros((1, 2, 40, 64), dtype=torch.bfloat16, device=dev)
+    before = port_fa.LAUNCHES
+    flat = torch.zeros(2 * 40 * 64 + 4, dtype=torch.bfloat16, device=dev)
+    shifted = flat[4:].view(1, 2, 40, 64)      # starts 8 bytes in
+    odd = torch.zeros((1, 2, 40, 68), dtype=torch.bfloat16,
+                      device=dev)[..., :64]     # seq stride 68
+    with pytest.raises(ValueError, match="stride 68"):
+        port_fa.flash_attention(odd, ok, ok)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        port_fa.flash_attention(ok, shifted, ok)
+    assert port_fa.LAUNCHES == before
+    got = port_fa.flash_attention(q, ok, ok)   # stride 72: aligned
+    torch.cuda.synchronize()
+    assert port_fa.LAUNCHES == before + 1 and bool(torch.isfinite(
+        got.float()).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
 @pytest.mark.parametrize("shape,kw", [
     ((1, 10, 1, 300, 300, 256), dict(causal=True)),          # recurrentgemma
@@ -171,10 +234,13 @@ def test_flash_attention_kernel_strided_inputs_and_refusals():
     ((8, 10, 1, 1, 160, 256), dict(causal=False, q_offset=79, kv_len=80)),
     ((1, 4, 2, 16, 64, 256), dict(causal=True, q_offset=48)),
     ((1, 4, 2, 16, 64, 256), dict(causal=True, q_offset=100, window=32)),
+    ((2, 20, 2, 77, 77, 256), dict(causal=True)),             # GQA group 10
+    ((2, 20, 2, 1, 77, 256), dict(causal=False, q_offset=76)),
 ])
 def test_flash_attention_kernel_head_dim_256(shape, kw, dtype):
     """recurrentgemma-2b's head dim: prefill, window, decode at kv_len,
-    q_offset (the last case leaves every row with no visible key)."""
+    q_offset (the sixth case leaves every row with no visible key), and
+    recurrentgemma's grouping of ten q heads on one kv head, ragged."""
     _attn_case(26, shape, dtype, **kw)
 
 
@@ -292,3 +358,123 @@ def test_mlstm_kernel_strided_inputs_and_refusals():
                                   .transpose(2, 3), k, v, f_cum, log_i)
     with pytest.raises(ValueError):
         port_mlstm.mlstm_parallel(q, k, v.cpu(), f_cum, log_i)
+
+
+KERNEL_CALLS = {    # name -> (wrapper module, inputs on a device -> call)
+    "gemm": (port_gemm, lambda dev: (
+        port_gemm.gemm, _operands(50, 64, 32, 16, dev, torch.float32))),
+    "flash_attention": (port_fa, lambda dev: (
+        port_fa.flash_attention,
+        _qkv(51, 1, 2, 2, 16, 16, 32, dev, torch.bfloat16))),
+    "rglru_scan": (port_rglru, lambda dev: (
+        port_rglru.rglru_scan,
+        _rglru_inputs(52, 1, 8, 16, dev, torch.float32))),
+    "mlstm_parallel": (port_mlstm, lambda dev: (
+        port_mlstm.mlstm_parallel,
+        _mlstm_inputs(53, 1, 2, 16, 32, dev, torch.float32))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(KERNEL_CALLS))
+def test_kernel_refuses_inputs_that_require_grad(name):
+    """No kernel has a backward yet, so a CUDA input that requires grad
+    raises under grad mode (autograd would drop its gradient without a
+    word) and launches nothing; under torch.no_grad() the kernel runs."""
+    dev = _card()
+    mod, make = KERNEL_CALLS[name]
+    fn, args = make(dev)
+    args[0].requires_grad_(True)
+    before = mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        fn(*args)
+    assert mod.LAUNCHES == before
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1 and not out.requires_grad
+    assert bool(torch.isfinite(out.float()).all())
+
+
+GOLDEN = Path(__file__).with_name("test_torch_golden.npz")
+GOLDEN_ARCHS = ("qwen1.5-0.5b", "recurrentgemma-2b")
+GOLDEN_BATCH, GOLDEN_PROMPT, GOLDEN_STEPS = 2, 40, 8
+
+
+def golden_weights(defs, seed: int = 0):
+    """A ParamDef tree (the port's or the reference's: the same leaves) as
+    float32 numpy drawn from ``default_rng(seed)`` leaf by leaf in sorted
+    key order, each leaf as its def says (zeros, ones, or a normal times
+    ``scale`` or 1/sqrt(fan_in)), the rule of ``tree_init``: the same
+    numbers on any machine, so no weights are stored."""
+    rng = np.random.default_rng(seed)
+
+    def mk(d):
+        if d.init in ("zeros", "ones"):
+            return np.full(d.shape, d.init == "ones", np.float32)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
+        scale = d.scale if d.scale is not None else fan_in ** -0.5
+        return (rng.standard_normal(d.shape, np.float32)
+                * np.float32(scale)).astype(np.float32)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {key: walk(tree[key]) for key in sorted(tree)}
+        return mk(tree)
+
+    return walk(defs)
+
+
+def golden_tokens(vocab: int) -> np.ndarray:
+    return np.random.default_rng(0).integers(
+        0, vocab, (GOLDEN_BATCH, GOLDEN_PROMPT + GOLDEN_STEPS)
+    ).astype(np.int32)
+
+
+def port_golden_outputs(arch: str, dtype: str, device) -> dict:
+    """The port's logits on ``device`` for what the golden file holds: a
+    forward over the prompt into fresh caches, then the decode steps."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype)
+    model = build_model(cfg, device)
+    params = params_from_numpy(golden_weights(model.defs), device)
+    toks = torch.from_numpy(golden_tokens(cfg.vocab_size)).to(device)
+    n, steps = GOLDEN_PROMPT, []
+    with torch.no_grad():
+        logits, caches, _ = model.forward(
+            params, {"tokens": toks[:, :n]},
+            caches=model.init_cache(GOLDEN_BATCH, n + GOLDEN_STEPS))
+        for t in range(n, n + GOLDEN_STEPS):
+            step, caches = model.decode_step(params, caches,
+                                             toks[:, t:t + 1], t)
+            steps.append(step[:, 0])
+    v = cfg.vocab_size
+    return {"prefill": logits[..., :v].float().cpu().numpy(),
+            "steps": torch.stack(steps)[..., :v].float().cpu().numpy()}
+
+
+def hold_to_golden(got: dict, golden, arch: str, dtype: str) -> None:
+    """tests/test_torch_models.py's tolerances: 1e-4 in float32, 3e-2 of
+    max |logit| in bfloat16."""
+    for key, val in got.items():
+        want = golden[f"{arch}/{dtype}/{key}"]
+        assert val.shape == want.shape, (key, val.shape, want.shape)
+        if dtype == "float32":
+            np.testing.assert_allclose(val, want, rtol=1e-4, atol=1e-4)
+        else:
+            err = np.abs(val - want).max()
+            assert err <= 3e-2 * np.abs(want).max(), (key, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", GOLDEN_ARCHS)
+def test_card_matches_the_references_golden_outputs(arch, dtype):
+    """The reduced model on the card, through the attention kernel (and,
+    for recurrentgemma, the scan kernel), against the reference's own
+    logits."""
+    dev = _card()
+    before = port_fa.LAUNCHES
+    got = port_golden_outputs(arch, dtype, dev)
+    assert port_fa.LAUNCHES > before
+    with np.load(GOLDEN) as golden:
+        hold_to_golden(got, golden, arch, dtype)

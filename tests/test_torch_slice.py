@@ -209,7 +209,7 @@ def _imports(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_card.py"]
     assert len(files) > 20
     walked = {f.parent.name for f in files}
     assert {"core", "kernels", "calibrate", "models", "launch"} <= walked
