@@ -14,11 +14,17 @@ xlstm-125m):
   1. setup     prints the card's name and power limit and builds every
                CUDA kernel of the paths from ``src/repro_torch/kernels/csrc``
                (nvcc for sm_90a, one process per source, all at once),
-               printing ptxas' register / shared-memory / spill lines;
+               printing ptxas' register / shared-memory / spill lines and,
+               from ``cuobjdump --dump-sass``, each GEMM entry's HMMA and
+               FFMA counts (every entry must multiply on the tensor cores
+               and none with FFMA);
   2. kernels   runs each kernel against its plain PyTorch version at the
                unit-test shapes and every shape the main paths give it
-               (f32 and bf16, two block shapes each): the GEMM at the
-               full-width qwen1.5-0.5b layer GEMMs; flash attention at the
+               (f32 and bf16, two block shapes each): the GEMM also at
+               ragged and unaligned shapes, into the other output dtype
+               and on NaN and Inf inputs, and at the full-width
+               qwen1.5-0.5b layer GEMMs, where its f32 error from the
+               float64 product must stay within 4x ``torch.matmul``'s; flash attention at the
                full-width qwen1.5-0.5b (d 64) and recurrentgemma-2b (d 256)
                prefill and decode shapes and the calibration suite's
                reduced ones; the RG-LRU scan at recurrentgemma-2b's
@@ -76,10 +82,16 @@ ROOT = Path(__file__).resolve().parent
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense) at 700 W
 H100_BYTES_PER_S = 3.35e12
-H100_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# float32 is the FFMA units' rate; tf32 the tensor cores' (the GEMM's f32
+# path does three TF32 products, so its bound is 3 x 2mnk at this rate)
+H100_PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 
 UNIT_SHAPES = ((128, 128, 128), (256, 512, 128), (64, 384, 256),
                (8, 128, 128), (256, 256, 1024), (40, 120, 72))
+# ragged and unaligned edges of the GEMM's 128 x 128 tile and its 16-byte
+# copies: k % 4 != 0 (f32 and bf16), n % 8 != 0 (bf16), m < 16
+GEMM_EDGES = ((33, 65, 31), (1, 1, 1), (17, 9, 129), (96, 64, 70),
+              (48, 100, 64), (130, 260, 36))
 BLOCK_SHAPES = (None, (64, 64, 64))
 TOLS = {"float32": (1e-4, 8e-4), "bfloat16": (2e-2, 1.6e-1)}  # rtol, atol
 KERNELS = {     # name -> what the JSON line says about it
@@ -212,6 +224,54 @@ def phase_setup() -> None:
         for line in log.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
+    gemm_sass(build._target("gemm"))
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy in Triton's package."""
+    import importlib.util
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cands.append(str(Path(spec.origin).parent / "backends" / "nvidia"
+                         / "bin" / "cuobjdump"))
+    tool = next((c for c in cands if c and Path(c).is_file()), None)
+    if tool is None:
+        raise RuntimeError("cuobjdump not found (PATH, /usr/local/cuda/bin "
+                           "or Triton's package): the GEMM's SASS is "
+                           "checked on a machine with the CUDA toolkit")
+    return tool
+
+
+def gemm_sass(lib: str) -> None:
+    """Per GEMM entry function of the built library, its tensor-core
+    (HMMA, by shape and type) and FFMA instruction counts from
+    ``cuobjdump --dump-sass``: every entry must multiply on the tensor
+    cores, TF32 for f32 inputs and BF16 for bf16 inputs, and none with
+    FFMA."""
+    tool = _cuobjdump()
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    funcs = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "gemm_kernel" in name:
+                funcs[name] = collections.Counter()
+        elif name in funcs:
+            for word in line.replace(";", " ").split():
+                op = word.split(".")[0]
+                if op in ("HMMA", "FFMA"):
+                    funcs[name][word if op == "HMMA" else op] += 1
+    # 2 input x 2 output dtypes x 2 copy variants
+    assert len(funcs) == 8, sorted(funcs)
+    for name, ops in sorted(funcs.items()):
+        print(f"  [gemm] SASS {name}: {dict(sorted(ops.items()))}")
+        want = "TF32" if "gemm_kernelIf" in name else "BF16"
+        assert any(op.startswith("HMMA") and want in op for op in ops), \
+            (name, want)
+        assert not ops["FFMA"], (name, ops["FFMA"])
 
 
 def _graph_ms(fn, device, iters: int = 20, reps: int = 5) -> float:
@@ -252,9 +312,42 @@ def _bound(flops: float, nbytes: float, dname: str):
                                  else "bytes")
 
 
+def _gemm_f64_err(got, x, w) -> float:
+    """Max abs distance of ``got`` from the float64 product of x and w."""
+    return (got.double() - x.double() @ w.double()).abs().max().item()
+
+
+def _gemm_nonfinite(gemm_mod, device, dtype) -> None:
+    """A and B with NaN and +-Inf made by CUDA ops (sqrt of -1, 1 / 0),
+    also where an Inf meets a TF32 value, a zero or another Inf: the
+    kernel's NaN and +-Inf must be plain's, at the same places."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((33, 31), generator=gen, device=device)
+    w = torch.randn((31, 65), generator=gen, device=device)
+    nan = torch.sqrt(torch.full((), -1.0, device=device))
+    inf = torch.reciprocal(torch.zeros((), device=device))
+    x[1, 3], x[2, 5], x[3, 7], x[5, 10] = inf, -inf, nan, 0.0
+    w[3, 0], w[3, 1], w[3, 2], w[3, 5] = 1.0, 0.0, -2.0, inf
+    w[5, 4], w[10, 6], w[11, 8] = -inf, -inf, nan
+    x, w = x.to(dtype), w.to(dtype)
+    got = gemm_mod.gemm(x, w).float()
+    want = gemm_mod.gemm_plain(x, w).float()
+    odd = ~want.isfinite()
+    assert torch.equal(~got.isfinite(), odd), "non-finite places differ"
+    assert torch.equal(got[odd].nan_to_num(), want[odd].nan_to_num())
+    print(f"  gemm {str(dtype)[6:]:8s} NaN / Inf inputs: "
+          f"{int(want.isnan().sum())} NaN, {int(want.isinf().sum())} Inf "
+          f"outputs, as plain gives them")
+
+
 def phase_gemm(device, cmp_shapes, timed_shapes) -> dict:
-    """GEMM kernel vs plain on the same inputs; timings at
-    ``timed_shapes`` in f32, the calibration path's dtype."""
+    """GEMM kernel vs plain on the same inputs, in both input dtypes, both
+    block shapes and the other output dtype, and on NaN and Inf; timings at ``timed_shapes``
+    in both input dtypes.  The row's dtype is f32, the calibration path's:
+    3xTF32, so its bound is three TF32 products at the TF32 peak.  At each
+    timed f32 shape the kernel's error from the float64 product must be at
+    most 4x that of ``torch.matmul`` (TF32 off)."""
     import torch
     from repro_torch.kernels import gemm as gemm_mod
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -263,30 +356,36 @@ def phase_gemm(device, cmp_shapes, timed_shapes) -> dict:
     max_abs = {"float32": 0.0, "bfloat16": 0.0}
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
-        rtol, atol = TOLS[dname]
+        other = torch.bfloat16 if dtype == torch.float32 else torch.float32
         for (m, n, k) in cmp_shapes:
             x = torch.randn((m, k), generator=gen, device=device).to(dtype)
             w = torch.randn((k, n), generator=gen, device=device).to(dtype)
-            want = gemm_mod.gemm_plain(x, w).float()
-            for block in BLOCK_SHAPES:
-                got = gemm_mod.gemm(x, w, block_shape=block)
+            for block, out_dtype in ((None, dtype), ((64, 64, 64), dtype),
+                                     (None, other)):
+                want = gemm_mod.gemm_plain(x, w, out_dtype).float()
+                got = gemm_mod.gemm(x, w, block_shape=block,
+                                    out_dtype=out_dtype)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                assert got.dtype == dtype and got.shape == (m, n), \
+                assert got.dtype == out_dtype and got.shape == (m, n), \
                     (got.dtype, got.shape)
                 err = (got.float() - want).abs().max().item()
                 rel = err / max(want.abs().max().item(), 1e-30)
-                print(f"  gemm {dname:8s} ({m},{n},{k}) block={block}: "
-                      f"max abs err {err:.3e}, rel {rel:.3e}")
+                oname = str(out_dtype).replace("torch.", "")
+                print(f"  gemm {dname:8s} -> {oname:8s} ({m},{n},{k}) "
+                      f"block={block}: max abs err {err:.3e}, rel {rel:.3e}")
+                rtol, atol = TOLS[oname if oname == "bfloat16" else dname]
                 torch.testing.assert_close(got.float(), want, rtol=rtol,
                                            atol=atol)
-                max_abs[dname] = max(max_abs[dname], err)
+                if out_dtype == dtype:
+                    max_abs[dname] = max(max_abs[dname], err)
+        _gemm_nonfinite(gemm_mod, device, dtype)
     if device.type != "cuda":
         return {"max_abs_err": max_abs["float32"], "timing": None}
-    timing = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "flops": 0.0, "bytes": 0.0, "dtype": "float32"}
+    sums = {}
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
+        tot = sums[dname] = collections.Counter()
         for (m, n, k) in timed_shapes:
             x = torch.randn((m, k), generator=gen, device=device).to(dtype)
             w = torch.randn((k, n), generator=gen, device=device).to(dtype)
@@ -295,18 +394,40 @@ def phase_gemm(device, cmp_shapes, timed_shapes) -> dict:
             lib = _graph_ms(lambda: torch.matmul(x, w), device)
             flops = 2.0 * m * n * k
             nbytes = float((m * k + k * n + m * n) * x.element_size())
-            bound, by = _bound(flops, nbytes, dname)
-            print(f"  time gemm {dname:8s} ({m},{n},{k}): kernel {ms:.4f} ms "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-                  f"torch.matmul {lib:.4f} ms, bound {bound:.4f} ms "
-                  f"({by}), kernel/bound {ms / bound:.2f}x")
-            if dname == "float32":      # the main path's dtype
-                timing["ms"] += ms
-                timing["plain_ms"] += plain
-                timing["library_ms"] += lib
-                timing["flops"] += flops
-                timing["bytes"] += nbytes
-    return {"max_abs_err": max_abs["float32"], "timing": timing}
+            # the tensor cores' bound: 3 TF32 products for f32 inputs
+            ops, kind = ((3 * flops, "tf32") if dname == "float32"
+                         else (flops, "bfloat16"))
+            bound, by = _bound(ops, nbytes, kind)
+            line = (f"  time gemm {dname:8s} ({m},{n},{k}): kernel {ms:.4f} "
+                    f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                    f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, "
+                    f"tensor-core bound {bound:.4f} ms ({by}"
+                    f"{', 3xTF32' if dname == 'float32' else ''}), "
+                    f"kernel/bound {ms / bound:.2f}x, kernel/matmul "
+                    f"{ms / lib:.2f}x")
+            if dname == "float32":
+                ffma, _ = _bound(flops, nbytes, "float32")
+                err = _gemm_f64_err(gemm_mod.gemm(x, w), x, w)
+                lib_err = _gemm_f64_err(torch.matmul(x, w), x, w)
+                line += (f", FFMA bound {ffma:.4f} ms; max abs err from "
+                         f"the float64 product: kernel {err:.3e}, "
+                         f"torch.matmul {lib_err:.3e}")
+                assert err <= 4 * lib_err, (m, n, k, err, lib_err)
+                tot["ffma"] += ffma
+            print(line)
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("library_ms", lib), ("bound", bound),
+                             ("flops", ops), ("bytes", nbytes)):
+                tot[key] += val
+        print(f"  time gemm {dname:8s} sum of {len(timed_shapes)} shapes: "
+              f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+              f"torch.matmul {tot['library_ms']:.4f} ms, tensor-core bound "
+              f"{tot['bound']:.4f} ms"
+              + (f", FFMA bound {tot['ffma']:.4f} ms" if tot["ffma"] else ""))
+    timing = {key: sums["float32"][key]
+              for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
+    return {"max_abs_err": max_abs["float32"],
+            "timing": dict(timing, dtype="tf32")}
 
 
 def _visible_pairs(sq: int, skv: int, causal: bool = True, window=None,
@@ -949,7 +1070,8 @@ def main() -> int:
     spec = microbench.default_spec("slice", reps=3)
     # the unit-test shapes and every shape the main paths give the kernels
     cases = {
-        "gemm": (tuple(dict.fromkeys(UNIT_SHAPES + spec.pallas_shapes)),
+        "gemm": (tuple(dict.fromkeys(UNIT_SHAPES + GEMM_EDGES
+                                     + spec.pallas_shapes)),
                  microbench.QWEN_LAYER_SHAPES),
         "flash_attention": (ATTN_UNIT + ATTN_PATH, ATTN_TIMED),
         "rglru_scan": (RGLRU_UNIT + RGLRU_PATH, RGLRU_PATH[:1]),

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ctypes — seconds per source, where
 a build that includes PyTorch's headers takes minutes.  Libraries go to
 ``build/`` beside this module (listed in ``.gitignore``), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  Nothing is built at import: the first call that
+the source, the ``csrc`` headers it includes and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing is built at import: the first call that
 needs a library builds it; `build` builds several at once, one ``nvcc``
 process per source, all started together.  `refuse_autograd` is the check
 every wrapper makes before it launches: the kernels have no backward yet.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,8 +44,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
+    """The library's path, named by a hash of the flags, the source and
+    the ``csrc`` headers it includes (``#include "..."``)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+        source = fh.read()
+    h.update(source)
+    for header in re.findall(rb'^#include "([^"]+)"', source, re.M):
+        with open(os.path.join(CSRC, header.decode()), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 

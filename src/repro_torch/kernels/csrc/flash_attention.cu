@@ -83,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr float MASKED = -1e30f;
@@ -292,51 +294,6 @@ attn_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !ok (src-size
-// 0: nothing is read, `src` need only be a valid address)
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool ok) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-                 "{%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr,
-                                              unsigned (&r)[4]) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-                 "{%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-                 "{%0, %1, %2, %3};\n"
-                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
-                   "r"(b0), "r"(b1));
-}
 
 // two floats as a bf16 pair, `lo` in the low half (the lower column)
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -577,16 +534,6 @@ attn_mma_kernel(const Params p) {
             *reinterpret_cast<unsigned*>(o1 + n * 8) =
                 pack_bf16(o[n][2] / d1, o[n][3] / d1);
     }
-}
-
-template <typename K>
-int set_smem(K kernel, size_t bytes, bool& configured) {
-    if (configured) return 0;              // one attribute call per variant
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-    return 0;
 }
 
 template <int D>

@@ -1,4 +1,4 @@
-"""Block-tiled GEMM: the hand-written Hopper kernel and its plain version.
+"""Tensor-core GEMM: the hand-written Hopper kernel and its plain version.
 
 The port of ``repro/kernels/gemm.py:gemm`` (a Pallas TPU kernel).  CrossFlow's
 hierarchical-roofline tiling search (`repro_torch.core.roofline.
@@ -6,12 +6,16 @@ best_gemm_tiling`) emits an (L2, L1, L0) tile triple whose L1 triple is the
 kernel's block shape (bm, bn, bk).
 
 `gemm` launches ``csrc/gemm.cu`` for CUDA tensors and computes `gemm_plain`
-for CPU tensors; there is no other path.  The CUDA kernel is compiled with
-one 128 x 128 x 8 tile, so a requested ``block_shape`` is validated,
-clamped like the reference's and recorded in `LAST_BLOCK_SHAPE`, and does
-not change the numerics (honouring it is a ROADMAP item).  `LAUNCHES`
-counts kernel launches: it rises by one where the kernel is launched and
-nowhere else.
+for CPU tensors; there is no other path.  The kernel runs on the tensor
+cores (``mma.sync``): bf16 inputs directly, f32 inputs as three TF32
+products (3xTF32), which keep the reference's f32 tolerance where one TF32
+product would not.  It is compiled with one 128 x 128 block tile, so a
+requested ``block_shape`` is validated, clamped like the reference's and
+recorded in `LAST_BLOCK_SHAPE`, and does not change the numerics
+(honouring it is a ROADMAP item).  The C entry takes the kernel's
+16-byte-copy variant where the operands' alignment and row lengths allow
+it, else its element-wise variant.  `LAUNCHES` counts kernel launches: it
+rises by one where the kernel is launched and nowhere else.
 """
 
 from __future__ import annotations

@@ -38,7 +38,12 @@ from repro_torch.models.convert import params_from_numpy
 
 SHAPES = [(128, 128, 128), (256, 512, 128), (64, 384, 256), (8, 128, 128),
           (256, 256, 1024), (40, 120, 72), (4096, 1024, 2816),
-          (4096, 5632, 1024)]
+          (4096, 5632, 1024),
+          # ragged edges of the 128 x 128 tile and m < 16; unaligned rows
+          # for the 16-byte copies: k % 4 != 0 (f32, bf16), n % 8 != 0
+          # (bf16), k % 8 != 0 (bf16 only)
+          (33, 65, 31), (1, 1, 1), (17, 9, 129), (96, 64, 70),
+          (48, 100, 64), (130, 260, 36)]
 DTYPES = {"float32": (torch.float32, 1e-4), "bfloat16": (torch.bfloat16, 2e-2)}
 
 
@@ -72,6 +77,77 @@ def test_gemm_kernel_matches_plain(dtype):
                                        port_gemm.gemm_plain(x, w).float(),
                                        rtol=tol, atol=tol * 8)
     assert port_gemm.LAUNCHES == before + 2 * len(SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("out", list(DTYPES))
+def test_gemm_kernel_in_out_dtypes(dtype, out):
+    """All four input / output dtype pairs, on aligned and unaligned
+    shapes, held at the tolerance of the coarser of the two."""
+    dev = _card()
+    tdt, odt = DTYPES[dtype][0], DTYPES[out][0]
+    tol = max(DTYPES[dtype][1], DTYPES[out][1])
+    before = port_gemm.LAUNCHES
+    shapes = [(256, 512, 128), (33, 65, 31), (96, 64, 70), (48, 100, 64)]
+    for i, (m, n, k) in enumerate(shapes):
+        x, w = _operands(40 + i, m, n, k, dev, tdt)
+        got = port_gemm.gemm(x, w, out_dtype=odt)
+        torch.cuda.synchronize()
+        assert got.dtype == odt and tuple(got.shape) == (m, n)
+        torch.testing.assert_close(
+            got.float(), port_gemm.gemm_plain(x, w, odt).float(),
+            rtol=tol, atol=tol * 8)
+    assert port_gemm.LAUNCHES == before + len(shapes)
+
+
+@pytest.mark.cuda
+def test_gemm_kernel_f32_error_at_k_2816_is_the_ffma_products():
+    """3xTF32 against the float64 product at k = 2816 (the qwen1.5-0.5b
+    down projection's depth): within 4x of torch.matmul's error (IEEE f32,
+    TF32 off) and inside the reference's f32 tolerance."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w = _operands(50, 256, 1024, 2816, dev, torch.float32)
+    want = x.double() @ w.double()
+    got = port_gemm.gemm(x, w)
+    lib = torch.matmul(x, w)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    lib_err = (lib.double() - want).abs().max().item()
+    assert err <= 4 * lib_err, (err, lib_err)
+    torch.testing.assert_close(got, want.float(), rtol=1e-4, atol=8e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("m,n,k", [(96, 128, 64), (33, 65, 31)])
+def test_gemm_kernel_inf_and_nan_match_plain(m, n, k, dtype):
+    """NaN and +-Inf made by CUDA ops (sqrt of -1, 1 / 0) in A and B, on
+    the 16-byte-copy and the element-wise variant: the kernel gives plain's
+    NaN and +-Inf at the same places (also where an Inf meets a TF32 value,
+    a zero or another Inf) and plain's values everywhere else."""
+    dev = _card()
+    tdt, tol = DTYPES[dtype]
+    x, w = _operands(60, m, n, k, dev, torch.float32)
+    nan = torch.sqrt(torch.full((), -1.0, device=dev))
+    inf = torch.reciprocal(torch.zeros((), device=dev))
+    x[1, 3], x[2, 5], x[3, 7], x[5, 10] = inf, -inf, nan, 0.0
+    w[3, 0], w[3, 1], w[3, 2], w[3, 5] = 1.0, 0.0, -2.0, inf
+    w[5, 4], w[10, 6], w[11, 8] = -inf, -inf, nan
+    x, w = x.to(tdt), w.to(tdt)
+    before = port_gemm.LAUNCHES
+    got = port_gemm.gemm(x, w).float()
+    want = port_gemm.gemm_plain(x, w).float()
+    torch.cuda.synchronize()
+    assert port_gemm.LAUNCHES == before + 1
+    assert want.isnan().any() and want.isinf().any()
+    assert torch.equal(got.isnan(), want.isnan())
+    inf_at = want.isinf()
+    assert torch.equal(got.isinf(), inf_at)
+    assert torch.equal(got[inf_at], want[inf_at])
+    fin = want.isfinite()
+    torch.testing.assert_close(got[fin], want[fin], rtol=tol, atol=tol * 8)
 
 
 @pytest.mark.cuda

@@ -21,7 +21,7 @@ from repro.core import roofline as ref_roofline
 from repro.core import simulate as ref_simulate
 from repro.core import transform as ref_transform
 from repro.core.parallelism import Strategy as RefStrategy
-from repro_torch.configs.base import SHAPE_CELLS, get_config
+from repro_torch.configs.base import ARCH_IDS, SHAPE_CELLS, get_config
 from repro_torch.core import age, lmgraph, roofline, simulate, transform
 from repro_torch.core.parallelism import Strategy
 
@@ -38,10 +38,15 @@ def _node_rows(g):
             for name, n in g.nodes.items()]
 
 
-@pytest.mark.parametrize("cell", list(REF_CELLS))
-def test_graph_and_sharded_shapes_match(cell):
-    ref_g = ref_lmgraph.build_graph(ref_get_config(ARCH), REF_CELLS[cell])
-    g = lmgraph.build_graph(get_config(ARCH), SHAPE_CELLS[cell])
+# every arch x every cell; qwen1.5-0.5b's cases keep their ids (the cell)
+GRAPH_CASES = [pytest.param(a, c, id=c if a == "qwen1_5_0_5b" else f"{a}-{c}")
+               for a in ARCH_IDS for c in REF_CELLS]
+
+
+@pytest.mark.parametrize("arch,cell", GRAPH_CASES)
+def test_graph_and_sharded_shapes_match(arch, cell):
+    ref_g = ref_lmgraph.build_graph(ref_get_config(arch), REF_CELLS[cell])
+    g = lmgraph.build_graph(get_config(arch), SHAPE_CELLS[cell])
     assert g.fingerprint() == ref_g.fingerprint()
     for s in STRATEGIES:
         ref_sh = ref_transform.shard_graph(ref_g, RefStrategy.parse(s))

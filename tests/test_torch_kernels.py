@@ -7,6 +7,9 @@ seed and handed to both packages; tolerances are the reference's own
 (tests/test_kernels.py): f32 rtol 1e-4 / atol 8e-4, bf16 2e-2 / 1.6e-1.
 """
 
+import shutil
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ import torch
 from repro.kernels.gemm import gemm as ref_gemm
 from repro.kernels.gemm import pick_block_shape as ref_pick
 from repro_torch import resolve_device
+from repro_torch.kernels import build
 from repro_torch.kernels import gemm as port_gemm
 from repro_torch.kernels import ops
 
@@ -104,3 +108,103 @@ def test_cuda_without_a_card_raises():
     for dev in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device(dev)
+
+
+def _tf32_rna(x):
+    """float32 -> TF32 (10 mantissa bits), round to nearest, ties away from
+    zero, as cvt.rna.tf32.f32: add half a unit of the 13 bits dropped to
+    the magnitude, then clear them; Inf and NaN stay as they are."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def _bits(*words):
+    return torch.tensor(words, dtype=torch.int64).to(torch.int32) \
+        .view(torch.float32)
+
+
+def _kernel_split(x):
+    """csrc/gemm.cu's split_tf32: x = hi + lo, hi = tf32(x), lo = tf32(x -
+    hi); where x is Inf or NaN or rounds past FLT_MAX, hi = +-1 and lo =
+    x - hi, unrounded."""
+    big = ~(x.abs() < _bits(0x7F7FF000))
+    sign = torch.where(x.view(torch.int32) < 0, -1.0, 1.0)
+    hi = torch.where(big, sign, _tf32_rna(x))
+    rest = x - hi
+    return hi, torch.where(big, rest, _tf32_rna(rest))
+
+
+def _3xtf32(x, w):
+    """The kernel's f32 product, emulated: lo.hi + hi.lo + hi.hi in f32."""
+    (x_hi, x_lo), (w_hi, w_lo) = _kernel_split(x), _kernel_split(w)
+    return x_lo @ w_hi + x_hi @ w_lo + x_hi @ w_hi
+
+
+def test_3xtf32_split_meets_the_reference_f32_tolerance():
+    """Why the kernel takes three TF32 products for f32 inputs: emulated on
+    the CPU, hi.hi + hi.lo + lo.hi (hi = tf32(x), lo = tf32(x - hi)),
+    summed in f32, passes the reference's f32 tolerance against the
+    reference GEMM at k = 2816; one TF32 product does not."""
+    x, w = _operands(6, 256, 256, 2816)
+    want = np.asarray(ref_gemm(jnp.asarray(x), jnp.asarray(w),
+                               interpret=True), np.float32)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    for t in (*_kernel_split(tx), *_kernel_split(tw)):   # 10 mantissa bits
+        assert not (t.view(torch.int32) & 0x1FFF).any()
+    np.testing.assert_allclose(_3xtf32(tx, tw).numpy(), want, rtol=1e-4,
+                               atol=8e-4)
+    one = (_tf32_rna(tx) @ _tf32_rna(tw)).numpy()
+    assert not np.allclose(one, want, rtol=1e-4, atol=8e-4)
+
+
+@pytest.mark.parametrize("m,n,k", [(12, 10, 16), (33, 65, 31),
+                                   (17, 9, 129), (96, 128, 64)])
+def test_3xtf32_split_keeps_inf_and_nan_as_the_f32_product(m, n, k):
+    """Inf and NaN in either operand (NaNs as a CUDA op and the CPU make
+    them, 0x7fffffff and 0xffc00000) give the plain f32 product's NaN and
+    +-Inf at the same places, also where an Inf meets a TF32 value
+    (lo = 0), a zero or another Inf; a split that keeps hi = Inf gives a
+    NaN where the product is Inf."""
+    x, w = (torch.from_numpy(t) for t in _operands(7, m, n, k))
+    nan_cuda, nan_cpu = _bits(0x7FFFFFFF, 0xFFC00000)
+    x[1, 3], x[2, 5], x[3, 7], x[5, 10] = (float("inf"), -float("inf"),
+                                           nan_cuda, 0.0)
+    w[3, 0], w[3, 1], w[3, 2], w[3, 5] = 1.0, 0.0, -2.0, float("inf")
+    w[5, 4], w[10, 6], w[11, 8] = -float("inf"), -float("inf"), nan_cpu
+    want = port_gemm.gemm_plain(x, w)
+    got = _3xtf32(x, w)
+    assert want.isnan().any() and want.isinf().any() \
+        and want.isfinite().any()
+    assert torch.equal(got.isnan(), want.isnan())
+    inf = want.isinf()
+    assert torch.equal(got.isinf(), inf) and torch.equal(got[inf], want[inf])
+    fin = want.isfinite()
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=8e-4)
+    # past FLT_MAX's last TF32 value: hi = 1, and the product stays finite
+    big = _bits(0x7F7FFFFF).reshape(1, 1)
+    quarter = torch.full((1, 1), 0.25)
+    torch.testing.assert_close(_3xtf32(big, quarter), big * quarter)
+    # hi = Inf, lo = 0 instead: Inf . 1.0 = Inf + Inf * 0 is a NaN
+    naive_hi = _tf32_rna(x)
+    naive_lo = torch.where(torch.isfinite(x), _tf32_rna(x - naive_hi), 0.0)
+    w_hi, w_lo = _kernel_split(w)
+    naive = naive_lo @ w_hi + naive_hi @ w_lo + naive_hi @ w_hi
+    assert naive[1, 0].isnan() and want[1, 0].isinf()
+
+
+@pytest.mark.parametrize("name,includes", [
+    ("gemm", True), ("flash_attention", True), ("rglru_scan", False),
+    ("mlstm", False)])
+def test_library_name_hashes_the_included_headers(name, includes, tmp_path,
+                                                  monkeypatch):
+    """A library's name follows its source and the csrc headers it
+    includes: an edited shared header renames the libraries of the
+    sources that include it and no other."""
+    for path in Path(build.CSRC).iterdir():
+        shutil.copy(path, tmp_path)
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    before = build._target(name)
+    with open(tmp_path / "mma_sync.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert (build._target(name) != before) is includes

@@ -43,7 +43,8 @@ from repro_torch.models.convert import (cache_from_numpy, params_from_numpy,
                                         params_to_numpy)
 
 PROMPT, STEPS, BATCH = 40, 8, 2
-ARCHS = ["qwen1.5-0.5b", "gemma3-27b", "recurrentgemma-2b", "xlstm-125m"]
+ARCHS = ["qwen1.5-0.5b", "gemma3-27b", "recurrentgemma-2b", "xlstm-125m",
+         "phi3-medium-14b", "mistral-large-123b", "internvl2-76b"]
 NOISY_BF16 = {"xlstm-125m"}     # chaotic in bfloat16: see the docstring
 
 
@@ -86,14 +87,28 @@ def _close_caches(got_tree, want_tree, dtype, truth_tree=None):
         assert np.abs(g - w).max() <= tol
 
 
+def _embeds(cfg):
+    """The vision stub's patch embeddings (numpy, seed 1) for the first
+    ``n_patch_tokens`` positions, or None where the arch has no stub."""
+    if cfg.frontend != "vision_stub" or not cfg.n_patch_tokens:
+        return None
+    n = min(cfg.n_patch_tokens, PROMPT)
+    return np.random.default_rng(1).standard_normal(
+        (BATCH, n, cfg.d_model)).astype(np.float32)
+
+
 def _ref_run(ref_cfg, ref_params, toks):
     """The reference's forward logits, prefill caches, decode-step logits
     and final caches (float32 numpy), and the prefill caches as they are."""
     ref_model = ref_build_model(ref_cfg)
-    out = {"logits": ref_model.forward(ref_params,
-                                       {"tokens": jnp.asarray(toks)})[0]}
+    emb = _embeds(ref_cfg)
+    emb = None if emb is None else jnp.asarray(emb)
+    batch = {"tokens": jnp.asarray(toks)}
+    if emb is not None:
+        batch["embeds"] = emb
+    out = {"logits": ref_model.forward(ref_params, batch)[0]}
     _, caches, _ = ref_tf.forward(
-        ref_params, jnp.asarray(toks[:, :PROMPT]), ref_cfg,
+        ref_params, jnp.asarray(toks[:, :PROMPT]), ref_cfg, embeds=emb,
         caches=ref_tf.init_cache(ref_cfg, BATCH, PROMPT + STEPS))
     out["prefill"] = caches
     out["steps"] = []
@@ -127,12 +142,15 @@ def test_forward_prefill_decode_match_reference(arch, dtype):
             return None
         return truth[key] if i is None else truth[key][i]
 
-    got = model.forward(params, {"tokens": torch.from_numpy(toks)})[0]
+    emb = _embeds(cfg)
+    extra = {} if emb is None else {"embeds": torch.from_numpy(emb)}
+    got = model.forward(params, {"tokens": torch.from_numpy(toks),
+                                 **extra})[0]
     assert got.dtype == torch.float32
     _close(got, want["logits"], dtype, truth=pick("logits"))
 
     _, caches, _ = model.forward(
-        params, {"tokens": torch.from_numpy(toks[:, :PROMPT])},
+        params, {"tokens": torch.from_numpy(toks[:, :PROMPT]), **extra},
         caches=model.init_cache(BATCH, PROMPT + STEPS))
     _close_caches(caches, want["prefill"], dtype, pick("prefill"))
 
