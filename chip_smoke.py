@@ -17,7 +17,10 @@ xlstm-125m):
                printing ptxas' register / shared-memory / spill lines and,
                from ``cuobjdump --dump-sass``, each GEMM entry's HMMA and
                FFMA counts (every entry must multiply on the tensor cores
-               and none with FFMA);
+               and none with FFMA) and each mLSTM entry's registers,
+               stack, local memory and HMMA count (``cuobjdump
+               --dump-resource-usage``; every bf16 entry must hold
+               ``HMMA.16816.F32.BF16`` and spill nothing);
   2. kernels   runs each kernel against its plain PyTorch version at the
                unit-test shapes and every shape the main paths give it
                (f32 and bf16, two block shapes each): the GEMM also at
@@ -28,14 +31,17 @@ xlstm-125m):
                full-width qwen1.5-0.5b (d 64) and recurrentgemma-2b (d 256)
                prefill and decode shapes and the calibration suite's
                reduced ones; the RG-LRU scan at recurrentgemma-2b's
-               (2, 2048, 2560); the mLSTM parallel form at xlstm-125m's
-               (2, 4, 2048, 192); then times kernel, plain version and the
+               (2, 2048, 2560); the mLSTM parallel form at ragged lengths
+               at every head dim and xlstm-125m's (2, 4, 2048, 192); then
+               times kernel, plain version and the
                library call where one PyTorch call computes the same
                function (torch.matmul, F.scaled_dot_product_attention with
                enable_gqa where the head counts differ, printing which of
                its fused backends take the shape; none for the scan and
                the mLSTM) at the full-width shapes, each from a CUDA-graph
-               replay timed with CUDA events, beside the card's bound;
+               replay timed with CUDA events, beside the card's bound
+               (the bf16 mLSTM kernel at (2, 4, 2048, d) for every head
+               dim; the JSON row keeps d = 192);
   3. calibrate the ``slice`` measurement suite on the tpu_v5e template: the
                quick cuBLAS GEMMs, the hand-written GEMM at the same shapes
                plus the full-width ones, bandwidth probes, the reduced
@@ -52,9 +58,10 @@ xlstm-125m):
                a 2048-token forward, and a profiled decode window;
   6. recurrent recurrentgemma-2b and xlstm-125m at full width (random
                weights from seed 0), each: ``Model.prefill`` of a batch-2,
-               2048-token prompt (timed), ``serve(batch=8, prompt_len=128,
-               gen=32)``, the same 2047 + 1 against 2048 consistency check,
-               and a profiled decode window.
+               2048-token prompt (timed, and once profiled: the mLSTM
+               kernels' share of its device-busy time), ``serve(batch=8,
+               prompt_len=128, gen=32)``, the same 2047 + 1 against 2048
+               consistency check, and a profiled decode window.
 
 Every kernel's launch count is zeroed just before phases 3-5 and again
 just before phase 6, and read just after each; each must have risen by
@@ -72,6 +79,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -113,7 +121,7 @@ KERNELS = {     # name -> what the JSON line says about it
 
 # the __global__ names of csrc/*.cu, as the profiler shows them
 PORT_KERNEL_NAMES = ("gemm_kernel", "attn_kernel", "attn_mma_kernel",
-                     "rglru_kernel", "mlstm_kernel")
+                     "rglru_kernel", "mlstm_kernel", "mlstm_mma_kernel")
 
 
 def _decode(b, h, skv, d, kv_len):
@@ -174,11 +182,17 @@ RGLRU_UNIT = ((1, 128, 64), (2, 256, 128), (3, 96, 32), (2, 7, 37),
 RGLRU_PATH = ((2, 2048, 2560), (2, 2047, 2560))
 RGLRU_BLOCKS = (128, 16)
 RGLRU_TOLS = (1e-5, 1e-6)                           # rtol, atol
-# the mLSTM parallel form: (b, h, s, d); the tests' shapes, then
-# xlstm-125m's prefill (2048) and phase 6's check (2047), 4 heads of 192
+# the mLSTM parallel form: (b, h, s, d); the tests' shapes, lengths that
+# are no multiple of the bf16 kernel's 16-row warp tile, 64-row q tile or
+# 64-key kv tile at every head dim, then xlstm-125m's prefill (2048)
+# and phase 6's check (2047), 4 heads of 192
+MLSTM_HEAD_DIMS = (32, 64, 128, 192)
 MLSTM_UNIT = ((1, 2, 128, 64), (2, 4, 256, 32), (1, 2, 1, 32),
-              (2, 4, 100, 192), (1, 1, 77, 128))
+              (2, 4, 100, 192), (1, 1, 77, 128),
+              *((2, 3, s, d) for d in MLSTM_HEAD_DIMS for s in (15, 65, 200)))
 MLSTM_PATH = ((2, 4, 2048, 192), (2, 4, 2047, 192))
+# timed in bf16: the path's shape (the JSON row), then the other head dims
+MLSTM_TIMED = (MLSTM_PATH[0], *((2, 4, 2048, d) for d in (32, 64, 128)))
 MLSTM_BLOCKS = ((128, 128), (32, 64))
 MLSTM_TOLS = {"float32": 3e-3, "bfloat16": 3e-2}   # rtol = atol
 SERVE = dict(batch=8, prompt_len=128, gen=32, use_reduced=False)
@@ -225,6 +239,7 @@ def phase_setup() -> None:
             if "ptxas" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
     gemm_sass(build._target("gemm"))
+    mlstm_sass(build._target("mlstm"), logs["mlstm"])
 
 
 def _cuobjdump() -> str:
@@ -243,27 +258,32 @@ def _cuobjdump() -> str:
     return tool
 
 
-def gemm_sass(lib: str) -> None:
-    """Per GEMM entry function of the built library, its tensor-core
-    (HMMA, by shape and type) and FFMA instruction counts from
-    ``cuobjdump --dump-sass``: every entry must multiply on the tensor
-    cores, TF32 for f32 inputs and BF16 for bf16 inputs, and none with
-    FFMA."""
-    tool = _cuobjdump()
-    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
+def _sass_ops(lib: str, kernel: str) -> dict:
+    """Per entry function of ``lib`` whose name holds ``kernel``, its
+    tensor-core (HMMA, by shape and type) and FFMA instruction counts from
+    ``cuobjdump --dump-sass``."""
+    sass = subprocess.run([_cuobjdump(), "--dump-sass", lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
     funcs = {}
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "gemm_kernel" in name:
+            if kernel in name:
                 funcs[name] = collections.Counter()
         elif name in funcs:
             for word in line.replace(";", " ").split():
                 op = word.split(".")[0]
                 if op in ("HMMA", "FFMA"):
                     funcs[name][word if op == "HMMA" else op] += 1
+    return funcs
+
+
+def gemm_sass(lib: str) -> None:
+    """Every GEMM entry must multiply on the tensor cores, TF32 for f32
+    inputs and BF16 for bf16 inputs, and none with FFMA."""
+    funcs = _sass_ops(lib, "gemm_kernel")
     # 2 input x 2 output dtypes x 2 copy variants
     assert len(funcs) == 8, sorted(funcs)
     for name, ops in sorted(funcs.items()):
@@ -272,6 +292,36 @@ def gemm_sass(lib: str) -> None:
         assert any(op.startswith("HMMA") and want in op for op in ops), \
             (name, want)
         assert not ops["FFMA"], (name, ops["FFMA"])
+
+
+def mlstm_sass(lib: str, log: str) -> None:
+    """Per mLSTM entry function, its registers, stack frame and local
+    memory (``cuobjdump --dump-resource-usage``), its spill stores where
+    this run's ptxas log has them, and its HMMA count: every bf16 entry
+    (``mlstm_mma_kernel``, one per head dim) must hold
+    ``HMMA.16816.F32.BF16`` and spill nothing (no stack, no local
+    memory, 0 bytes of spill stores)."""
+    usage = subprocess.run([_cuobjdump(), "--dump-resource-usage", lib],
+                           capture_output=True, text=True, check=True,
+                           timeout=120).stdout
+    res = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage))
+    spills = dict(re.findall(r"Function properties for (\S+)\s*\n\s*\d+ "
+                             r"bytes stack frame, (\d+) bytes spill stores",
+                             log))
+    ops = _sass_ops(lib, "mlstm")
+    mma = [name for name in ops if "mlstm_mma_kernel" in name]
+    assert len(ops) == 8 and len(mma) == 4, sorted(ops)
+    for name in sorted(ops):
+        fields = dict(re.findall(r"(\w+):(\d+)", res.get(name, "")))
+        assert "REG" in fields, (name, usage[:2000])
+        hmma = {op: n for op, n in ops[name].items() if op != "FFMA"}
+        print(f"  [mlstm] {name}: {fields['REG']} registers, stack "
+              f"{fields['STACK']} B, local {fields['LOCAL']} B, spill "
+              f"stores {spills.get(name, 'not in this log')}, {hmma}")
+        if name in mma:
+            assert ops[name]["HMMA.16816.F32.BF16"] > 0, (name, hmma)
+            assert fields["STACK"] == fields["LOCAL"] == "0", (name, fields)
+            assert spills.get(name, "0") == "0", (name, spills[name])
 
 
 def _graph_ms(fn, device, iters: int = 20, reps: int = 5) -> float:
@@ -620,10 +670,11 @@ def _mlstm_inputs(shape, dtype, gen, device):
 
 def phase_mlstm(device, cmp_shapes, timed_shapes) -> dict:
     """mLSTM kernel vs `mlstm_parallel_ref` on the same inputs; timings at
-    ``timed_shapes`` in bf16, the model path's dtype.  No one PyTorch call
-    computes the stabilised decay-weighted form, so the library time is
-    None (the plain version, a naive einsum / matmul form, is timed as
-    plain)."""
+    ``timed_shapes`` in bf16, the model path's dtype (the tensor-core
+    kernel), each beside its bound; the first is the JSON row's.  No one
+    PyTorch call computes the stabilised decay-weighted form, so the
+    library time is None (the plain version, a naive einsum / matmul form,
+    is timed as plain)."""
     import torch
     from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels.ref import mlstm_parallel_ref
@@ -651,7 +702,7 @@ def phase_mlstm(device, cmp_shapes, timed_shapes) -> dict:
     if device.type != "cuda":
         return {"max_abs_err": max_abs["bfloat16"], "timing": None}
     timing = dict(_timing(), dtype="bfloat16")
-    for shape in timed_shapes:
+    for i, shape in enumerate(timed_shapes):
         b, h, s, d = shape
         ins = _mlstm_inputs(shape, torch.bfloat16, gen, device)
         ms = _graph_ms(lambda: ml.mlstm_parallel(*ins), device)
@@ -663,10 +714,10 @@ def phase_mlstm(device, cmp_shapes, timed_shapes) -> dict:
         print(f"  time mlstm_parallel bfloat16 {shape}: kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
               f"library none (no one PyTorch call computes it), bound "
-              f"{bound:.5f} ms ({by}), kernel/bound {ms / bound:.1f}x")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("flops", flops),
-                         ("bytes", nbytes)):
-            timing[key] += val
+              f"{bound:.5f} ms ({by}), kernel/bound {ms / bound:.1f}x"
+              + ("  [the JSON row]" if i == 0 else ""))
+        if i == 0:
+            timing.update(ms=ms, plain_ms=plain, flops=flops, bytes=nbytes)
     return {"max_abs_err": max_abs["bfloat16"], "timing": timing}
 
 
@@ -884,9 +935,16 @@ def phase_recurrent(device, rec: dict) -> dict:
                     torch.cuda.synchronize(device)
                 times.append(time.perf_counter() - t1)
             if device.type == "cuda":       # a third, profiled
-                _device_profile(lambda: model.prefill(params,
-                                                      {"tokens": ids}),
-                                1, f"Model.prefill ({batch}, {plen})")
+                prof = _device_profile(
+                    lambda: model.prefill(params, {"tokens": ids}), 1,
+                    f"Model.prefill ({batch}, {plen})")
+                if prof and kinds["mlstm"]:
+                    busy, by_name = prof
+                    ms = sum(t for key, t in by_name.items()
+                             if "mlstm" in key) / 1e3
+                    print(f"  mLSTM kernels: {ms:.4f} ms of the profiled "
+                          f"prefill's {busy / 1e3:.3f} ms device busy "
+                          f"({ms * 1e3 / busy * 100:.2f} %)")
         leaves = [t for c in caches.values() for b in c.values()
                   for t in b.values()]
         assert all(bool(torch.isfinite(t).all()) for t in leaves)
@@ -925,10 +983,12 @@ def phase_recurrent(device, rec: dict) -> dict:
     return expected
 
 
-def _device_profile(fn, n: int, what: str) -> None:
+def _device_profile(fn, n: int, what: str):
     """``fn()`` under torch.profiler (CPU + CUDA): prints wall time and
     device-busy time per each of its ``n`` units of ``what``, the idle
-    share and the kernels by device time."""
+    share and the kernels by device time.  Returns the device-busy us and
+    the device us per kernel name, or None where the profiler recorded no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -944,7 +1004,7 @@ def _device_profile(fn, n: int, what: str) -> None:
     if not busy_us:
         print(f"  profiled {what}: the profiler recorded no device time "
               f"(device busy share not measured)")
-        return
+        return None
     launches = sum(e.count for e in kernels)
     print(f"  profiled {what}: wall {wall / n * 1e3:.3f} ms each (profiler "
           f"on), device busy {busy_us / n / 1e3:.3f} ms each, idle share "
@@ -957,6 +1017,7 @@ def _device_profile(fn, n: int, what: str) -> None:
         print(f"    {e.self_device_time_total / n / 1e3:8.4f} ms "
               f"({e.self_device_time_total / busy_us * 100:4.1f} %) "
               f"{e.count / n:6.1f} launches  {e.key[:90]}")
+    return busy_us, {e.key: e.self_device_time_total for e in kernels}
 
 
 def _profile_decode(model, params, serve_kw: dict, device) -> int:
@@ -1075,7 +1136,7 @@ def main() -> int:
                  microbench.QWEN_LAYER_SHAPES),
         "flash_attention": (ATTN_UNIT + ATTN_PATH, ATTN_TIMED),
         "rglru_scan": (RGLRU_UNIT + RGLRU_PATH, RGLRU_PATH[:1]),
-        "mlstm_parallel": (MLSTM_UNIT + MLSTM_PATH, MLSTM_PATH[:1]),
+        "mlstm_parallel": (MLSTM_UNIT + MLSTM_PATH, MLSTM_TIMED),
     }
     kernels = run(device, spec, ROOT / "build" / "chip_smoke", cases, SERVE,
                   CHECK_LEN, RECURRENT)

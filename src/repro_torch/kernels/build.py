@@ -9,7 +9,8 @@ source or header is rebuilt and an unchanged one is loaded as it is.
 Nothing is built at import: the first call that
 needs a library builds it; `build` builds several at once, one ``nvcc``
 process per source, all started together.  `refuse_autograd` is the check
-every wrapper makes before it launches: the kernels have no backward yet.
+every wrapper makes before it launches: the kernels have no backward yet;
+`check_aligned` the one the bf16 tensor-core kernels' wrappers add.
 """
 
 from __future__ import annotations
@@ -112,3 +113,20 @@ def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
             f"{name}: the CUDA kernel has no backward yet (ROADMAP queue 1 "
             f"item 9); call it under torch.no_grad() or on tensors that do "
             f"not require grad")
+
+
+def check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """The bf16 tensor-core kernels copy rows in 16-byte pieces
+    (cp.async): each tensor's data must start 16-byte aligned and each
+    stride over a dimension longer than 1 (the last has unit stride) must
+    be a multiple of 8 elements.  Raises ValueError naming the start or
+    the stride."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: bf16 {arg} starts at "
+                             f"{t.data_ptr():#x}, not 16-byte aligned")
+        for dim, (n, s) in enumerate(zip(t.shape[:-1], t.stride()[:-1])):
+            if n > 1 and s % 8:
+                raise ValueError(
+                    f"{name}: bf16 {arg} has stride {s} over dim {dim}, not "
+                    f"a multiple of 8 elements (16 bytes)")

@@ -134,19 +134,6 @@ constexpr int RPT = BQ / 16;               // rows per thread (4)
 constexpr int CPT = BKV / 16;              // score columns per thread (4)
 constexpr int LDP = BKV + 1;               // padded P row (floats)
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-    return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
     return sizeof(float) * (size_t)((BQ + 2 * BKV) * (D + 1) + BQ * LDP);
@@ -294,21 +281,6 @@ attn_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-// two floats as a bf16 pair, `lo` in the low half (the lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 template <int D, int WARPS>
 struct MmaTile {

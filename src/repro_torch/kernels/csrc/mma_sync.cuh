@@ -1,10 +1,13 @@
-// Building blocks shared by the tensor-core kernels (gemm.cu,
-// flash_attention.cu): cp.async copies into shared memory, ldmatrix
-// fragment loads, the bf16 mma.sync, and the dynamic shared-memory
-// attribute every launch above 48 KB needs.
+// Building blocks shared by the kernels (gemm.cu, flash_attention.cu,
+// mlstm.cu): cp.async copies into shared memory, ldmatrix fragment loads,
+// the bf16 mma.sync, bf16 packing, the row reductions of the m16n8
+// accumulator layout (a quad of lanes) and of the FFMA kernels (a half
+// warp), and the dynamic shared-memory attribute every launch above 48 KB
+// needs.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -19,6 +22,13 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                                            bool ok) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+// 4 bytes global -> shared through L1 (cp.async takes 4 only as .ca);
+// zero-filled when !ok
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool ok) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -52,6 +62,37 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
                  : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
                    "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, `lo` in the low half (the lower column),
+// each rounded to nearest even
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// a row of an m16n8 accumulator lies in one quad of lanes
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// a row of the FFMA kernels' tiles lies in one half warp
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+    return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
 }
 
 // Allow `kernel` `bytes` of dynamic shared memory, once per variant.

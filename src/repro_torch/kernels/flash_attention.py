@@ -92,21 +92,6 @@ def _check(q, k, v, window, block_q, block_kv, q_offset, kv_len):
                          f"got {kv_len!r}")
 
 
-def _check_aligned(q, k, v):
-    """The bf16 kernel copies rows in 16-byte pieces (cp.async): each
-    tensor's data must start 16-byte aligned and each stride over a
-    dimension longer than 1 must be a multiple of 8 elements."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: bf16 {name} starts at "
-                             f"{t.data_ptr():#x}, not 16-byte aligned")
-        for dim, (n, s) in enumerate(zip(t.shape[:3], t.stride()[:3])):
-            if n > 1 and s % 8:
-                raise ValueError(
-                    f"flash_attention: bf16 {name} has stride {s} over dim "
-                    f"{dim}, not a multiple of 8 elements (16 bytes)")
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     block_q: int = 128, block_kv: int = 128,
@@ -141,7 +126,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: batch x heads = {b * h} exceeds "
                          f"the kernel's grid ({_MAX_BATCH_HEADS})")
     if q.dtype == torch.bfloat16:
-        _check_aligned(q, k, v)
+        build.check_aligned("flash_attention", q=q, k=k, v=v)
     build.refuse_autograd("flash_attention", q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)

@@ -7,10 +7,13 @@ prompt.
 
 `mlstm_parallel` launches ``csrc/mlstm.cu`` for CUDA tensors and computes
 `repro_torch.kernels.ref.mlstm_parallel_ref` for CPU tensors; there is no
-other path.  The kernel is compiled with one 64 x 64 tile, so ``block_q``
-/ ``block_kv`` are validated and do not change the output.  `LAUNCHES`
-counts kernel launches: it rises by one where the kernel is launched and
-nowhere else.
+other path.  bf16 (the model path) runs on the tensor cores
+(``mlstm_mma_kernel``: ``mma.sync`` fed by ``cp.async``, so bf16 q, k, v
+must start 16-byte aligned with strides that are multiples of 8, else the
+wrapper raises), f32 on FFMA (``mlstm_kernel``).  Each kernel picks its
+own tiles, so ``block_q`` / ``block_kv`` are validated and do not change
+the output.  `LAUNCHES` counts kernel launches: it rises by one where the
+kernel is launched and nowhere else.
 """
 
 from __future__ import annotations
@@ -89,9 +92,10 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (b, h, s, d) in q's dtype.  Head dims 32, 64, 128, 192; any s;
     float32 or bfloat16 q, k, v (f_cum and log_i are read in float32).
-    CUDA tensors launch the Hopper kernel on the current stream or raise;
-    CPU tensors take `mlstm_parallel_ref`.  The CUDA output is laid out
-    (b, s, h, d) in memory (a transposed view), the layout the block's
+    CUDA tensors launch the Hopper kernel on the current stream or raise
+    (bf16 ones must start 16-byte aligned, with strides that are multiples
+    of 8); CPU tensors take `mlstm_parallel_ref`.  The CUDA output is laid
+    out (b, s, h, d) in memory (a transposed view), the layout the block's
     output projection reads.
     """
     global LAUNCHES
@@ -107,6 +111,8 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > _MAX_BATCH_HEADS:
         raise ValueError(f"mlstm_parallel: batch x heads = {b * h} exceeds "
                          f"the kernel's grid ({_MAX_BATCH_HEADS})")
+    if q.dtype == torch.bfloat16:
+        build.check_aligned("mlstm_parallel", q=q, k=k, v=v)
     build.refuse_autograd("mlstm_parallel", q, k, v, f_cum, log_i)
     f_cum, log_i = f_cum.float(), log_i.float()
     out = torch.empty((b, s, h, d), dtype=q.dtype,

@@ -9,11 +9,14 @@ linear attention
     h_t  = (sum_j D_tj (q_t.k_j) v_j) / max(|sum_j D_tj (q_t.k_j)|, e^{-m_t})
 
 which runs as `ops.mlstm(..., use_kernel=True)`, the hand-written kernel,
-where the reference runs its jnp twin ``_mlstm_parallel``.  As the TPU
-kernel does, the kernel rounds the weights to v's dtype before they meet V
-(the reference's jnp twin keeps them in fp32): in bfloat16 the two differ
-by a rounding, in float32 not at all.  Decode carries the (h, d, d') matrix
-state C and normalizer n, O(1) per token.
+where the reference runs its jnp twin ``_mlstm_parallel``: in bfloat16 (the
+model's dtype) on the tensor cores (``mma.sync``; q, k and v split off the
+(b, s, h*d) projections meet its 16-byte alignment), in float32 on FFMA.
+As the TPU kernel does, the kernel scales q in its own dtype (as the jnp
+twin and both decodes do: the scale rounded to q's dtype) and rounds the
+weights to v's dtype before they meet V (the jnp twin keeps them in fp32):
+in bfloat16 the two differ by a rounding, in float32 not at all.  Decode
+carries the (h, d, d') matrix state C and normalizer n, O(1) per token.
 
 sLSTM is inherently sequential (h_{t-1} feeds the gates through recurrent
 weights R): the reference's ``lax.scan`` over time is a Python loop here.
@@ -145,7 +148,10 @@ def mlstm_decode(p: Dict, x: torch.Tensor, state: Dict,
     Returns the output and a new state (``state`` is left as it was)."""
     b = x.shape[0]
     nh, hd = _heads(cfg)
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, nh, hd) * hd ** -0.5
+    # the reference's jnp multiplies by the scale rounded to x's dtype (a
+    # weakly typed float), as the kernel does over a prompt; on the host
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, nh, hd) \
+        * torch.tensor(hd ** -0.5, dtype=x.dtype).item()
     k = (x @ p["wk"].to(x.dtype)).reshape(b, nh, hd).float()
     v = (x @ p["wv"].to(x.dtype)).reshape(b, nh, hd).float()
     q = q.float()

@@ -16,7 +16,11 @@ RG-LRU scan sums in the plain version's order, so it is held to rtol 1e-5
 The models on the card are held to the reference's own outputs in
 tests/test_torch_golden.npz (written from CPU JAX by
 tests/test_torch_golden.py) at tests/test_torch_models.py's tolerances:
-1e-4 in float32, 3e-2 of max |logit| in bfloat16.
+1e-4 in float32, 3e-2 of max |logit| in bfloat16.  xlstm-125m, chaotic in
+bfloat16, is held to tests/test_torch_golden_xlstm.npz part by part: its
+first mLSTM and sLSTM blocks in both dtypes (float32 at 1e-4), its stack's
+logits in float32 (2e-4 of max |logit|: `XLSTM_STACK_TOL`), and the TPU
+kernel's own bfloat16 output at head dim 192.
 """
 
 import dataclasses
@@ -33,7 +37,7 @@ from repro_torch.kernels import mlstm as port_mlstm
 from repro_torch.kernels import rglru as port_rglru
 from repro_torch.kernels.ref import (attention_ref, mlstm_parallel_ref,
                                      rglru_scan_ref)
-from repro_torch.models import build_model
+from repro_torch.models import build_model, common, xlstm
 from repro_torch.models.convert import params_from_numpy
 
 SHAPES = [(128, 128, 128), (256, 512, 128), (64, 384, 256), (8, 128, 128),
@@ -392,7 +396,11 @@ def _mlstm_inputs(seed, b, h, s, d, dev, dtype):
 @pytest.mark.parametrize("dtype", list(MLSTM_DTYPES))
 @pytest.mark.parametrize("b,h,s,d", [
     (1, 2, 128, 64), (2, 4, 256, 32), (1, 2, 1, 32), (2, 4, 100, 192),
-    (2, 4, 2048, 192), (1, 1, 77, 128)])
+    (2, 4, 2048, 192), (1, 1, 77, 128),
+    # every head dim at lengths that are no multiple of the 16-row warp
+    # tile, the 64-row q tile or the 64-key kv tile
+    *((2, 3, s, d) for d in port_mlstm.HEAD_DIMS for s in (15, 65, 200)),
+    (1, 2, 2047, 192)])
 def test_mlstm_kernel_matches_plain(b, h, s, d, dtype):
     dev = _card()
     tdt, tol = MLSTM_DTYPES[dtype]
@@ -434,6 +442,100 @@ def test_mlstm_kernel_strided_inputs_and_refusals():
                                   .transpose(2, 3), k, v, f_cum, log_i)
     with pytest.raises(ValueError):
         port_mlstm.mlstm_parallel(q, k, v.cpu(), f_cum, log_i)
+    # bf16 as xlstm-125m's block makes them: heads of 192 split off three
+    # (b, s, 768) projections (aligned, not contiguous)
+    xb = [torch.from_numpy(rng.standard_normal((2, 90, 768), np.float32))
+          .to(dev, torch.bfloat16) for _ in range(3)]
+    qb, kb, vb = (t.reshape(2, 90, 4, 192).transpose(1, 2) for t in xb)
+    assert not qb.is_contiguous() and qb.stride(2) == 768
+    got = port_mlstm.mlstm_parallel(qb, kb, vb, f_cum, log_i)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), mlstm_parallel_ref(qb, kb, vb, f_cum, log_i).float(),
+        rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_refuses_unaligned_bf16():
+    """The bf16 kernel's 16-byte copies need 16-byte rows: the wrapper
+    raises, naming the stride or the start, and launches nothing."""
+    dev = _card()
+    z = torch.zeros((1, 2, 40), device=dev)
+    ok = torch.zeros((1, 2, 40, 64), dtype=torch.bfloat16, device=dev)
+    flat = torch.zeros(2 * 40 * 64 + 4, dtype=torch.bfloat16, device=dev)
+    shifted = flat[4:].view(1, 2, 40, 64)      # starts 8 bytes in
+    odd = torch.zeros((1, 2, 40, 68), dtype=torch.bfloat16,
+                      device=dev)[..., :64]     # seq stride 68
+    wide = torch.zeros((1, 2, 40, 72), dtype=torch.bfloat16,
+                       device=dev)[..., :64]    # seq stride 72: aligned
+    before = port_mlstm.LAUNCHES
+    with pytest.raises(ValueError, match="stride 68"):
+        port_mlstm.mlstm_parallel(ok, odd, ok, z, z)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        port_mlstm.mlstm_parallel(ok, ok, shifted, z, z)
+    assert port_mlstm.LAUNCHES == before
+    got = port_mlstm.mlstm_parallel(wide, ok, ok, z, z)
+    torch.cuda.synchronize()
+    assert port_mlstm.LAUNCHES == before + 1 and bool(torch.isfinite(
+        got.float()).all())
+
+
+def _poisoned(seed, d, dev, dtype, which, row, value):
+    """(1, 2, 200, d) inputs with ``value`` (NaN or Inf, made by CUDA ops)
+    in one element of row ``row`` of head 0's q or k."""
+    q, k, v, f_cum, log_i = _mlstm_inputs(seed, 1, 2, 200, d, dev,
+                                          torch.float32)
+    bad = {"nan": torch.sqrt(torch.full((), -1.0, device=dev)),
+           "inf": torch.reciprocal(torch.zeros((), device=dev))}[value]
+    (q if which == "q" else k)[0, 0, row, 3] = bad
+    return (*(t.to(dtype) for t in (q, k, v)), f_cum, log_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(MLSTM_DTYPES))
+@pytest.mark.parametrize("d", [64, 192])
+@pytest.mark.parametrize("which,row", [("q", 70), ("k", 5)])
+@pytest.mark.parametrize("value", ["nan", "inf"])
+def test_mlstm_kernel_nan_and_inf_match_plain(value, which, row, d, dtype):
+    """NaN or Inf in one q row (that row only is non-finite) or in one k
+    row of the first kv tile (every row of the head: a masked entry is
+    S * 0, as in plain): the kernel's non-finite outputs are plain's, and
+    its finite ones are plain's within the tolerance."""
+    dev = _card()
+    tdt, tol = MLSTM_DTYPES[dtype]
+    ins = _poisoned(42, d, dev, tdt, which, row, value)
+    want = mlstm_parallel_ref(*ins).float()
+    got = port_mlstm.mlstm_parallel(*ins).float()
+    torch.cuda.synchronize()
+    odd = ~want.isfinite()
+    assert bool(odd.any()) and bool(want[0, 1].isfinite().all())
+    assert torch.equal(~got.isfinite(), odd)
+    torch.testing.assert_close(got[~odd], want[~odd], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(MLSTM_DTYPES))
+@pytest.mark.parametrize("d", [64, 192])
+def test_mlstm_kernel_nan_key_past_the_first_tile(d, dtype):
+    """Where the kernel and plain part: a NaN key j = 150 poisons every
+    row in plain (0 * NaN above the diagonal), in the kernel only the rows
+    whose walk reaches j's kv tile (the 64-row q tiles from row 128 on);
+    the rows before skip that tile and are plain's output with key j
+    zeroed (which they never see)."""
+    dev = _card()
+    tdt, tol = MLSTM_DTYPES[dtype]
+    ins = _poisoned(43, d, dev, tdt, "k", 150, "nan")
+    assert bool(mlstm_parallel_ref(*ins)[0, 0].isnan().all())
+    got = port_mlstm.mlstm_parallel(*ins).float()
+    torch.cuda.synchronize()
+    assert bool(got[0, 0, 128:].isnan().all())
+    k = ins[1].clone()
+    k[0, 0, 150] = 0
+    want = mlstm_parallel_ref(ins[0], k, *ins[2:]).float()
+    torch.testing.assert_close(got[0, 0, :128], want[0, 0, :128], rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(got[0, 1], want[0, 1], rtol=tol, atol=tol)
 
 
 KERNEL_CALLS = {    # name -> (wrapper module, inputs on a device -> call)
@@ -554,3 +656,106 @@ def test_card_matches_the_references_golden_outputs(arch, dtype):
     assert port_fa.LAUNCHES > before
     with np.load(GOLDEN) as golden:
         hold_to_golden(got, golden, arch, dtype)
+
+
+GOLDEN_XLSTM = Path(__file__).with_name("test_torch_golden_xlstm.npz")
+XLSTM = "xlstm-125m"
+XLSTM_PARTS = ("mlstm", "slstm", "stack", "kernel")
+# the blocks' input: 100 positions cross the kernel's 64-key tile at the
+# reduced head dim 32, raggedly; the TPU kernel's: the full head dim 192,
+# 200 positions against the 64-row q and 64-key kv tiles
+XLSTM_BLOCK_SEQ = 100
+XLSTM_KERNEL_SHAPE = (1, 2, 200, 192)
+
+
+def xlstm_block_input(d_model: int) -> np.ndarray:
+    return np.random.default_rng(0).standard_normal(
+        (GOLDEN_BATCH, XLSTM_BLOCK_SEQ, d_model)).astype(np.float32)
+
+
+def xlstm_kernel_inputs():
+    """q, k, v, f_cum, log_i as float32 numpy (q, k, v go in as
+    bfloat16), made as tests/test_torch_scan_kernels.py makes them."""
+    rng = np.random.default_rng(0)
+    b, h, s, d = XLSTM_KERNEL_SHAPE
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32)
+               for _ in range(3))
+    f = rng.standard_normal((b, h, s)).astype(np.float32) + 1.0
+    log_f = -np.logaddexp(0.0, -f).astype(np.float32)        # log sigmoid
+    log_i = (rng.standard_normal((b, h, s)) * 0.3).astype(np.float32)
+    return q, k, v, np.cumsum(log_f, axis=-1).astype(np.float32), log_i
+
+
+def first_block(group: dict, kind: str):
+    """The parameters of a layer group's first block of ``kind``."""
+    j = min(int(key[1:]) for key, blk in group.items() if kind in blk)
+    return group[f"b{j}"][kind]
+
+
+def port_xlstm_golden_outputs(part: str, device) -> dict:
+    """The port's outputs on ``device`` for one part of the xlstm golden
+    file (`XLSTM_PARTS`), by the file's keys."""
+    if part == "stack":
+        return {f"stack/float32/{key}": val for key, val in
+                port_golden_outputs(XLSTM, "float32", device).items()}
+    if part == "kernel":
+        q, k, v, f_cum, log_i = (torch.from_numpy(x).to(device)
+                                 for x in xlstm_kernel_inputs())
+        out = port_mlstm.mlstm_parallel(*(t.to(torch.bfloat16)
+                                          for t in (q, k, v)), f_cum, log_i)
+        return {"kernel/bfloat16": out.float().cpu().numpy()}
+    apply = {"mlstm": xlstm.mlstm_apply, "slstm": xlstm.slstm_apply}[part]
+    got = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(reduced(get_config(XLSTM)), dtype=dtype)
+        params = params_from_numpy(
+            golden_weights(build_model(cfg, device).defs), device)
+        p = first_block(common.tree_index(params["groups"], 0), part)
+        x = torch.from_numpy(xlstm_block_input(cfg.d_model)).to(
+            device, getattr(torch, dtype))
+        with torch.no_grad():
+            got[f"{part}/{dtype}"] = apply(p, x, cfg).float().cpu().numpy()
+    return got
+
+
+# The reduced stack amplifies float32 summation-order differences: half an
+# ulp on every weight moves the reference's own logits by 3.6e-5 of max
+# |logit| (test_torch_golden.py::
+# test_xlstm_f32_stack_noise_is_the_references_own), and on an H100 one
+# logit of 40,960 lay 1.07e-4 from the file, with the mLSTM kernel or its
+# plain version alike.  So the stack is held to 2e-4 of max |logit|, the
+# blocks to 1e-4.
+XLSTM_STACK_TOL = 2e-4
+
+
+def hold_to_xlstm_golden(got: dict, golden) -> None:
+    """The stack's float32 logits to `XLSTM_STACK_TOL` of max |logit|; the
+    blocks in float32 to 1e-4 (rtol and atol); bfloat16 to 3e-2 of max
+    |value|."""
+    for key, val in got.items():
+        want = golden[key]
+        assert val.shape == want.shape, (key, val.shape, want.shape)
+        if key.startswith("stack/"):
+            err = np.abs(val - want).max()
+            assert err <= XLSTM_STACK_TOL * np.abs(want).max(), (key, err)
+        elif "float32" in key:
+            np.testing.assert_allclose(val, want, rtol=1e-4, atol=1e-4,
+                                       err_msg=key)
+        else:
+            err = np.abs(val - want).max()
+            assert err <= 3e-2 * np.abs(want).max(), (key, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", XLSTM_PARTS)
+def test_card_matches_the_xlstm_golden_outputs(part):
+    """The reduced xlstm-125m on the card against the reference's own
+    outputs: the first mLSTM block (through the bf16 tensor-core kernel and
+    the f32 FFMA one) and sLSTM block in both dtypes, the stack's f32
+    logits, and the bf16 kernel against the TPU kernel at head dim 192."""
+    dev = _card()
+    before = port_mlstm.LAUNCHES
+    got = port_xlstm_golden_outputs(part, dev)
+    assert (port_mlstm.LAUNCHES > before) == (part != "slstm")
+    with np.load(GOLDEN_XLSTM) as golden:
+        hold_to_xlstm_golden(got, golden)

@@ -195,7 +195,7 @@ def test_3xtf32_split_keeps_inf_and_nan_as_the_f32_product(m, n, k):
 
 @pytest.mark.parametrize("name,includes", [
     ("gemm", True), ("flash_attention", True), ("rglru_scan", False),
-    ("mlstm", False)])
+    ("mlstm", True)])
 def test_library_name_hashes_the_included_headers(name, includes, tmp_path,
                                                   monkeypatch):
     """A library's name follows its source and the csrc headers it

@@ -10,6 +10,12 @@ fp32, product then sum, so they are held to 1e-5), mLSTM 3e-3 in float32
 and 3e-2 in bfloat16 (the TPU kernel rounds its weights to bfloat16 before
 w.V, the plain version does not).  Flash attention's plain version is
 checked at recurrentgemma's head dim 256.
+
+The bf16 mLSTM kernel's design (csrc/mlstm.cu, ``mlstm_mma_kernel``) runs
+only on the card; here a torch emulation of its tiled online form, with
+its tiles and its rounding points, is held to the TPU kernel in interpret
+mode in bfloat16 (3e-2) and to the plain version in float32 (1e-5: the
+tiling alone moves nothing but the order of fp32 sums).
 """
 
 import jax
@@ -24,6 +30,7 @@ from repro.kernels.mlstm import mlstm_parallel as ref_mlstm
 from repro.kernels.rglru import rglru_scan as ref_rglru
 from repro_torch.kernels import mlstm as port_mlstm
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels import rglru as port_rglru
 from repro_torch.kernels.ref import (attention_ref, mlstm_parallel_ref,
                                      rglru_scan_ref)
@@ -212,3 +219,78 @@ def test_attention_ref_at_head_dim_256(shape, kw):
                                atol=2e-3)
     assert torch.equal(got, attention_ref(*(torch.from_numpy(x)
                                             for x in (q, k, v)), **kw))
+
+
+def _mlstm_kernel_emulation(q, k, v, f_cum, log_i):
+    """csrc/mlstm.cu's bf16 kernel in torch: 64-row q tiles, kv tiles of
+    64 keys up to the tile holding the q tile's last row
+    (tiles above the diagonal skipped), K, V, F and i zero-filled past s;
+    q * scale rounded to q's dtype; a = (F_t - F_j) + i_j, -1e30 above the
+    diagonal, -inf past s; the running m; w = S exp(a - m) (0 past s); the
+    denominator from the unrounded w, the numerator from w rounded to v's
+    dtype; out = num / max(|den|, exp(-m)) in q's dtype.  Returns the
+    output and the (q tile, kv tile) pairs walked."""
+    b, h, s, d = q.shape
+    bq, bkv = 64, 64
+    low = q.dtype == torch.bfloat16
+    n_kv = -(-s // bkv)
+
+    def pad(x):                     # zero rows past s, to whole kv tiles
+        shape = list(x.shape)
+        shape[2] = n_kv * bkv - s
+        return torch.cat([x.float(), x.new_zeros(shape, dtype=torch.float32)],
+                         dim=2)
+
+    qs = (q * torch.tensor(d ** -0.5, dtype=q.dtype)).float()
+    kf, vf = pad(k), pad(v)
+    fc, li = pad(f_cum[..., None])[..., 0], pad(log_i[..., None])[..., 0]
+    out = torch.empty((b, h, s, d))
+    pairs = 0
+    for q0 in range(0, s, bq):
+        rows = torch.arange(q0, min(q0 + bq, s))
+        m = torch.full((b, h, len(rows), 1), port_ref.NEG_INF)
+        den = torch.zeros((b, h, len(rows), 1))
+        num = torch.zeros((b, h, len(rows), d))
+        for k0 in range(0, int(rows[-1]) + 1, bkv):
+            pairs += 1
+            cols = torch.arange(k0, k0 + bkv)
+            live = cols[None, :] < s
+            sc = qs[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)
+            a = (fc[:, :, rows, None] - fc[:, :, None, cols]) \
+                + li[:, :, None, cols]
+            a = torch.where(cols[None, :] <= rows[:, None], a,
+                            torch.full((), port_ref.NEG_INF))
+            a = torch.where(live, a, torch.full((), -torch.inf))
+            m_new = torch.maximum(m, a.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            w = torch.where(live, sc * torch.exp(a - m_new), 0.0)
+            den = den * corr + w.sum(-1, keepdim=True)
+            wr = w.to(torch.bfloat16).float() if low else w
+            num = num * corr + wr @ vf[:, :, cols]
+            m = m_new
+        out[:, :, rows] = num / torch.maximum(den.abs(), torch.exp(-m))
+    return out.to(q.dtype), pairs
+
+
+@pytest.mark.parametrize("s", [1, 15, 63, 65, 200])
+@pytest.mark.parametrize("d", port_mlstm.HEAD_DIMS)
+def test_mlstm_kernel_design_emulated(d, s):
+    """The bf16 kernel's tiled online form: in bfloat16 against the TPU
+    kernel (interpret mode), whose rounding points it shares, at 3e-2; in
+    float32 against the plain version at 1e-5; only the causal tiles are
+    walked."""
+    ins = _mlstm_inputs(11, 1, 2, s, d)
+    walked = sum((min(q0 + 64, s) - 1) // 64 + 1 for q0 in range(0, s, 64))
+    qkv = [jnp.asarray(x, jnp.bfloat16) for x in ins[:3]]
+    want = ref_mlstm(*qkv, jnp.asarray(ins[3]), jnp.asarray(ins[4]),
+                     interpret=True)
+    got, pairs = _mlstm_kernel_emulation(
+        *(torch.from_numpy(_np(x)).to(torch.bfloat16) for x in qkv),
+        torch.from_numpy(ins[3]), torch.from_numpy(ins[4]))
+    assert got.dtype == torch.bfloat16 and pairs == walked
+    np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=3e-2,
+                               atol=3e-2)
+    f32 = [torch.from_numpy(x) for x in ins]
+    got, _ = _mlstm_kernel_emulation(*f32)
+    torch.testing.assert_close(got, mlstm_parallel_ref(*f32), rtol=1e-5,
+                               atol=1e-5)
