@@ -17,10 +17,13 @@ xlstm-125m):
                printing ptxas' register / shared-memory / spill lines and,
                from ``cuobjdump --dump-sass``, each GEMM entry's HMMA and
                FFMA counts (every entry must multiply on the tensor cores
-               and none with FFMA) and each mLSTM entry's registers,
+               and none with FFMA), each mLSTM entry's registers,
                stack, local memory and HMMA count (``cuobjdump
                --dump-resource-usage``; every bf16 entry must hold
-               ``HMMA.16816.F32.BF16`` and spill nothing);
+               ``HMMA.16816.F32.BF16`` and spill nothing) and each RG-LRU
+               scan entry's registers, shared memory, spills and LDGSTS /
+               FMUL / FADD / FFMA counts (every ring entry must copy with
+               LDGSTS, no entry may hold an FFMA, none may spill);
   2. kernels   runs each kernel against its plain PyTorch version at the
                unit-test shapes and every shape the main paths give it
                (f32 and bf16, two block shapes each): the GEMM also at
@@ -30,9 +33,11 @@ xlstm-125m):
                float64 product must stay within 4x ``torch.matmul``'s; flash attention at the
                full-width qwen1.5-0.5b (d 64) and recurrentgemma-2b (d 256)
                prefill and decode shapes and the calibration suite's
-               reduced ones; the RG-LRU scan at recurrentgemma-2b's
-               (2, 2048, 2560); the mLSTM parallel form at ragged lengths
-               at every head dim and xlstm-125m's (2, 4, 2048, 192); then
+               reduced ones; the RG-LRU scan bit for bit, on both of its
+               variants (printing which each shape took), at
+               recurrentgemma-2b's (2, 2048, 2560); the mLSTM parallel
+               form at ragged lengths at every head dim and xlstm-125m's
+               (2, 4, 2048, 192); then
                times kernel, plain version and the
                library call where one PyTorch call computes the same
                function (torch.matmul, F.scaled_dot_product_attention with
@@ -58,8 +63,9 @@ xlstm-125m):
                a 2048-token forward, and a profiled decode window;
   6. recurrent recurrentgemma-2b and xlstm-125m at full width (random
                weights from seed 0), each: ``Model.prefill`` of a batch-2,
-               2048-token prompt (timed, and once profiled: the mLSTM
-               kernels' share of its device-busy time), ``serve(batch=8,
+               2048-token prompt (timed, and once profiled: the scan's and
+               the mLSTM kernels' shares of its device-busy time),
+               ``serve(batch=8,
                prompt_len=128, gen=32)``, the same 2047 + 1 against 2048
                consistency check, and a profiled decode window.
 
@@ -121,7 +127,8 @@ KERNELS = {     # name -> what the JSON line says about it
 
 # the __global__ names of csrc/*.cu, as the profiler shows them
 PORT_KERNEL_NAMES = ("gemm_kernel", "attn_kernel", "attn_mma_kernel",
-                     "rglru_kernel", "mlstm_kernel", "mlstm_mma_kernel")
+                     "rglru_kernel", "rglru_ring_kernel", "mlstm_kernel",
+                     "mlstm_mma_kernel")
 
 
 def _decode(b, h, skv, d, kv_len):
@@ -174,14 +181,15 @@ ATTN_PATH = (   # the shapes the main paths give the kernel
 ATTN_TIMED = (ATTN_PATH[0], ATTN_PATH[3], ATTN_PATH[8], ATTN_PATH[12])
 ATTN_BLOCKS = ((128, 128), (32, 64))
 ATTN_TOLS = {"float32": 2e-3, "bfloat16": 3e-2}    # rtol = atol
-# the RG-LRU scan: (batch, seq, width); the tests' shapes, then
-# recurrentgemma-2b's prefill (2048) and phase 6's check (2047) at width
-# 2560.  The scan sums in the plain version's order: rtol 1e-5.
+# the RG-LRU scan: (batch, seq, width); the tests' shapes (widths 37, and
+# 100 and 36 in bf16, take the element-wise variant; 36 and 40 leave a
+# partial channel block on the ring), then recurrentgemma-2b's prefill
+# (2048) and phase 6's check (2047) at width 2560.  Both variants take the
+# plain version's product then sum at every step: bit for bit.
 RGLRU_UNIT = ((1, 128, 64), (2, 256, 128), (3, 96, 32), (2, 7, 37),
-              (1, 1, 64))
+              (1, 1, 64), (2, 200, 36), (3, 130, 100), (1, 100, 40))
 RGLRU_PATH = ((2, 2048, 2560), (2, 2047, 2560))
 RGLRU_BLOCKS = (128, 16)
-RGLRU_TOLS = (1e-5, 1e-6)                           # rtol, atol
 # the mLSTM parallel form: (b, h, s, d); the tests' shapes, lengths that
 # are no multiple of the bf16 kernel's 16-row warp tile, 64-row q tile or
 # 64-key kv tile at every head dim, then xlstm-125m's prefill (2048)
@@ -240,6 +248,7 @@ def phase_setup() -> None:
                 print(f"  [{name}] {line.strip()}")
     gemm_sass(build._target("gemm"))
     mlstm_sass(build._target("mlstm"), logs["mlstm"])
+    rglru_sass(build._target("rglru_scan"), logs["rglru_scan"])
 
 
 def _cuobjdump() -> str:
@@ -258,10 +267,13 @@ def _cuobjdump() -> str:
     return tool
 
 
+SASS_OPS = ("HMMA", "FFMA", "FMUL", "FADD", "LDGSTS")
+
+
 def _sass_ops(lib: str, kernel: str) -> dict:
     """Per entry function of ``lib`` whose name holds ``kernel``, its
-    tensor-core (HMMA, by shape and type) and FFMA instruction counts from
-    ``cuobjdump --dump-sass``."""
+    tensor-core (HMMA, by shape and type), FFMA, FMUL, FADD and LDGSTS
+    (``cp.async``) instruction counts from ``cuobjdump --dump-sass``."""
     sass = subprocess.run([_cuobjdump(), "--dump-sass", lib],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
@@ -275,7 +287,7 @@ def _sass_ops(lib: str, kernel: str) -> dict:
         elif name in funcs:
             for word in line.replace(";", " ").split():
                 op = word.split(".")[0]
-                if op in ("HMMA", "FFMA"):
+                if op in SASS_OPS:
                     funcs[name][word if op == "HMMA" else op] += 1
     return funcs
 
@@ -294,6 +306,21 @@ def gemm_sass(lib: str) -> None:
         assert not ops["FFMA"], (name, ops["FFMA"])
 
 
+def _resources(lib: str, log: str):
+    """Per entry function of ``lib``: its resource fields (``cuobjdump
+    --dump-resource-usage``: REG, SHARED, STACK, LOCAL, ...) and, where
+    this run's ptxas log has them, its bytes of spill stores."""
+    usage = subprocess.run([_cuobjdump(), "--dump-resource-usage", lib],
+                           capture_output=True, text=True, check=True,
+                           timeout=120).stdout
+    res = {name: dict(re.findall(r"(\w+):(\d+)", fields)) for name, fields
+           in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage)}
+    spills = dict(re.findall(r"Function properties for (\S+)\s*\n\s*\d+ "
+                             r"bytes stack frame, (\d+) bytes spill stores",
+                             log))
+    return res, spills, usage
+
+
 def mlstm_sass(lib: str, log: str) -> None:
     """Per mLSTM entry function, its registers, stack frame and local
     memory (``cuobjdump --dump-resource-usage``), its spill stores where
@@ -301,20 +328,14 @@ def mlstm_sass(lib: str, log: str) -> None:
     (``mlstm_mma_kernel``, one per head dim) must hold
     ``HMMA.16816.F32.BF16`` and spill nothing (no stack, no local
     memory, 0 bytes of spill stores)."""
-    usage = subprocess.run([_cuobjdump(), "--dump-resource-usage", lib],
-                           capture_output=True, text=True, check=True,
-                           timeout=120).stdout
-    res = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage))
-    spills = dict(re.findall(r"Function properties for (\S+)\s*\n\s*\d+ "
-                             r"bytes stack frame, (\d+) bytes spill stores",
-                             log))
+    res, spills, usage = _resources(lib, log)
     ops = _sass_ops(lib, "mlstm")
     mma = [name for name in ops if "mlstm_mma_kernel" in name]
     assert len(ops) == 8 and len(mma) == 4, sorted(ops)
     for name in sorted(ops):
-        fields = dict(re.findall(r"(\w+):(\d+)", res.get(name, "")))
+        fields = res.get(name, {})
         assert "REG" in fields, (name, usage[:2000])
-        hmma = {op: n for op, n in ops[name].items() if op != "FFMA"}
+        hmma = {op: n for op, n in ops[name].items() if op.startswith("HMMA")}
         print(f"  [mlstm] {name}: {fields['REG']} registers, stack "
               f"{fields['STACK']} B, local {fields['LOCAL']} B, spill "
               f"stores {spills.get(name, 'not in this log')}, {hmma}")
@@ -322,6 +343,34 @@ def mlstm_sass(lib: str, log: str) -> None:
             assert ops[name]["HMMA.16816.F32.BF16"] > 0, (name, hmma)
             assert fields["STACK"] == fields["LOCAL"] == "0", (name, fields)
             assert spills.get(name, "0") == "0", (name, spills[name])
+
+
+def rglru_sass(lib: str, log: str) -> None:
+    """Per RG-LRU scan entry (the ring and the element-wise variant, f32
+    and bf16), its registers, static shared memory (the ring's tiles are
+    dynamic, sized at launch), stack, local memory and spills, and its
+    LDGSTS / FMUL / FADD / FFMA counts: every ring entry
+    must copy with LDGSTS (``cp.async``); no entry may hold an FFMA (the
+    output is the plain version's bit for bit only because each step is
+    a rounded product, then a rounded sum); none may spill."""
+    res, spills, usage = _resources(lib, log)
+    ops = _sass_ops(lib, "rglru")
+    ring = [name for name in ops if "rglru_ring_kernel" in name]
+    assert len(ops) == 4 and len(ring) == 2, sorted(ops)
+    for name in sorted(ops):
+        fields = res.get(name, {})
+        assert "REG" in fields, (name, usage[:2000])
+        print(f"  [rglru_scan] {name}: {fields['REG']} registers, static "
+              f"shared {fields.get('SHARED', '?')} B, stack "
+              f"{fields['STACK']} B, local {fields['LOCAL']} B, spill "
+              f"stores {spills.get(name, 'not in this log')}, "
+              f"{ {op: ops[name][op] for op in SASS_OPS[1:]} }")
+        assert ops[name]["FMUL"] and ops[name]["FADD"], (name, ops[name])
+        assert not ops[name]["FFMA"], (name, ops[name]["FFMA"])
+        if name in ring:
+            assert ops[name]["LDGSTS"], (name, ops[name])
+        assert fields["STACK"] == fields["LOCAL"] == "0", (name, fields)
+        assert spills.get(name, "0") == "0", (name, spills[name])
 
 
 def _graph_ms(fn, device, iters: int = 20, reps: int = 5) -> float:
@@ -614,7 +663,6 @@ def phase_rglru(device, cmp_shapes, timed_shapes) -> dict:
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels.ref import rglru_scan_ref
     gen = torch.Generator(device=device).manual_seed(2)
-    rtol, atol = RGLRU_TOLS
     max_abs = 0.0
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
@@ -629,8 +677,10 @@ def phase_rglru(device, cmp_shapes, timed_shapes) -> dict:
                     (got.dtype, got.shape)
                 err = (got - want).abs().max().item()
                 print(f"  rglru_scan {dname:8s} {shape} block_t={block_t}: "
-                      f"max abs err {err:.3e}")
-                torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+                      f"{rg.LAST_VARIANT or 'plain'}, max abs err {err:.3e}")
+                # bit for bit (the inputs are finite)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (shape, err)
                 max_abs = max(max_abs, err)
     if device.type != "cuda":
         return {"max_abs_err": max_abs, "timing": None}
@@ -639,14 +689,16 @@ def phase_rglru(device, cmp_shapes, timed_shapes) -> dict:
         a, b, h0 = _rglru_inputs(shape, torch.float32, gen, device)
         batch, seq, width = shape
         ms = _graph_ms(lambda: rg.rglru_scan(a, b, h0), device)
+        variant = rg.LAST_VARIANT
         # the plain version is a loop of 3 launches per step: few replays
         plain = _graph_ms(lambda: rglru_scan_ref(a, b, h0), device,
                           iters=2, reps=2)
         flops = 2.0 * batch * seq * width
         nbytes = float(4 * (3 * batch * seq * width + batch * width))
         bound, by = _bound(flops, nbytes, "float32")
-        print(f"  time rglru_scan float32 {shape}: kernel {ms:.4f} ms "
-              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
+        print(f"  time rglru_scan float32 {shape}: {variant} kernel "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
+              f"{plain:.4f} ms, "
               f"library none (no one PyTorch call computes a linear "
               f"recurrence), bound {bound:.5f} ms ({by}), kernel/bound "
               f"{ms / bound:.1f}x")
@@ -938,13 +990,15 @@ def phase_recurrent(device, rec: dict) -> dict:
                 prof = _device_profile(
                     lambda: model.prefill(params, {"tokens": ids}), 1,
                     f"Model.prefill ({batch}, {plen})")
-                if prof and kinds["mlstm"]:
-                    busy, by_name = prof
-                    ms = sum(t for key, t in by_name.items()
-                             if "mlstm" in key) / 1e3
-                    print(f"  mLSTM kernels: {ms:.4f} ms of the profiled "
-                          f"prefill's {busy / 1e3:.3f} ms device busy "
-                          f"({ms * 1e3 / busy * 100:.2f} %)")
+                for kind, what in (("rglru", "RG-LRU scan kernels"),
+                                   ("mlstm", "mLSTM kernels")):
+                    if prof and kinds[kind]:
+                        busy, by_name = prof
+                        ms = sum(t for key, t in by_name.items()
+                                 if kind in key) / 1e3
+                        print(f"  {what}: {ms:.4f} ms of the profiled "
+                              f"prefill's {busy / 1e3:.3f} ms device busy "
+                              f"({ms * 1e3 / busy * 100:.2f} %)")
         leaves = [t for c in caches.values() for b in c.values()
                   for t in b.values()]
         assert all(bool(torch.isfinite(t).all()) for t in leaves)

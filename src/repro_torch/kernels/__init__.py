@@ -7,7 +7,9 @@
                       kv_len masks and GQA (csrc/flash_attention.cu); the
                       LM runtime's every attention call
   rglru.py            the RG-LRU linear-recurrence scan
-                      (csrc/rglru_scan.cu); recurrentgemma's prefill
+                      (csrc/rglru_scan.cu: a cp.async ring, or an
+                      element-wise variant for unaligned shapes);
+                      recurrentgemma's prefill
   mlstm.py            xLSTM's mLSTM parallel form (csrc/mlstm.cu); the
                       mLSTM blocks' prefill
   ops.py              public wrappers with the ``use_kernel`` switch

@@ -7,11 +7,16 @@ computed (`repro_torch.models.rglru`).
 
 `rglru_scan` launches ``csrc/rglru_scan.cu`` for CUDA tensors and computes
 `repro_torch.kernels.ref.rglru_scan_ref` for CPU tensors; there is no other
-path.  The kernel walks the whole sequence in one thread per (batch,
-channel), so ``block_t`` (the TPU kernel's sequence block) is validated,
-clamped like the reference's and recorded in `LAST_BLOCK_T`, and does not
-change the output.  `LAUNCHES` counts kernel launches: it rises by one
-where the kernel is launched and nowhere else.
+path.  The source has two variants, both bit for bit the plain version:
+the ring (one warp walks 32 channels of one batch row through the whole
+sequence, fed by a ring of 16-byte ``cp.async`` copies in shared memory)
+and the element-wise kernel for shapes the 16-byte copies cannot take.
+`kernel_variant` chooses between them; the launch records its choice in
+`LAST_VARIANT`.  Each channel's sequence is walked in order from h0, so
+``block_t`` (the TPU kernel's sequence block) is validated, clamped like
+the reference's and recorded in `LAST_BLOCK_T`, and does not change the
+output.  `LAUNCHES` counts kernel launches: it rises by one where a kernel
+is launched and nowhere else.
 """
 
 from __future__ import annotations
@@ -27,9 +32,12 @@ from repro_torch.kernels.ref import rglru_scan_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH = 65535              # grid.y limit
+RING, ELEMENTWISE = "ring", "elementwise"
+_VARIANT_CODES = {ELEMENTWISE: 0, RING: 1}
 
 LAUNCHES = 0                    # kernel launches since the last reset
 LAST_BLOCK_T: Optional[int] = None
+LAST_VARIANT: Optional[str] = None  # the last launch's; None on the host
 
 
 def reset_launches() -> None:
@@ -47,7 +55,7 @@ def _lib():
     if _LIB is None:
         lib = build.library("rglru_scan")
         lib.repro_rglru_scan.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.repro_rglru_scan.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -66,16 +74,27 @@ def _block_t(block_t, seq: int) -> int:
     return bt
 
 
+def kernel_variant(a: torch.Tensor, b: torch.Tensor) -> str:
+    """`RING` where the ring's 16-byte copies can take a and b (a width of
+    whole copies, 4 float32 or 8 bfloat16 channels, and both 16-byte
+    aligned), else `ELEMENTWISE`."""
+    per_copy = 16 // a.element_size()
+    if a.shape[-1] % per_copy == 0 \
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0:
+        return RING
+    return ELEMENTWISE
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
                block_t: int = 128) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t, h_0 given.
 
     a/b: (batch, seq, width), float32 or bfloat16 (one dtype); h0: (batch,
     width), float32 or bfloat16.  Returns float32 (batch, seq, width).
-    CUDA tensors launch the Hopper kernel on the current stream or raise;
-    CPU tensors take `rglru_scan_ref`.
+    CUDA tensors launch the `kernel_variant` of the Hopper kernel on the
+    current stream or raise; CPU tensors take `rglru_scan_ref`.
     """
-    global LAUNCHES, LAST_BLOCK_T
+    global LAUNCHES, LAST_BLOCK_T, LAST_VARIANT
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
         raise ValueError(f"rglru_scan takes a and b of one (batch, seq, "
                          f"width) shape, got {tuple(a.shape)} and "
@@ -95,6 +114,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
         raise ValueError(f"rglru_scan: a, b, h0 on {a.device}, {b.device}, "
                          f"{h0.device}")
     LAST_BLOCK_T = _block_t(block_t, seq)
+    LAST_VARIANT = None
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":
@@ -108,14 +128,18 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     h0 = h0.to(torch.float32).contiguous()
     out = torch.empty((batch, seq, width), dtype=torch.float32,
                       device=a.device)
+    variant = kernel_variant(a, b)
     lib = _lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
                                   out.data_ptr(), batch, seq, width,
-                                  _DTYPE_CODES[a.dtype], stream)
+                                  _DTYPE_CODES[a.dtype],
+                                  _VARIANT_CODES[variant], stream)
     if rc != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
-                           f"{rc} ({lib.repro_cuda_error_string(rc).decode()})")
+        raise RuntimeError(f"rglru_scan {variant} kernel launch failed: CUDA "
+                           f"error {rc} "
+                           f"({lib.repro_cuda_error_string(rc).decode()})")
     LAUNCHES += 1
+    LAST_VARIANT = variant
     return out

@@ -10,8 +10,9 @@ Inputs come from numpy with a seed; tolerances are the reference's
 1.6e-1; attention 2e-3 for f32, 3e-2 for bf16; mLSTM 3e-3 for f32 and
 3e-2 for bf16 (the kernel rounds the weights to bf16 before w.V, as the
 TPU kernel does, and the plain version does not: one bf16 rounding).  The
-RG-LRU scan sums in the plain version's order, so it is held to rtol 1e-5
-(the TPU kernel's own test allows 1e-4).
+RG-LRU scan takes the plain version's product then sum at every step, on
+both of its variants, so it is held to it bit for bit (the TPU kernel's
+own test allows 1e-4).
 
 The models on the card are held to the reference's own outputs in
 tests/test_torch_golden.npz (written from CPU JAX by
@@ -333,26 +334,103 @@ def _rglru_inputs(seed, batch, seq, width, dev, dtype):
                  for x, t in ((a, dtype), (b, dtype), (h0, torch.float32)))
 
 
+def _same_bits(got, want):
+    """Bit for bit where ``want`` is a number; NaN where it is NaN (a
+    NaN's payload aside)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                       want.masked_fill(nan, 0).view(torch.int32))
+
+
+# (batch, seq, width, f32 variant, bf16 variant): the path's prefill and
+# phase 6's check; a partial channel block (36, 40); widths the 16-byte
+# copies cannot take (37; 100 and 36 in bf16); batch 3; seq shorter than
+# one 64-row tile (1, 7) and than the ring's four tiles (100, 130, 200)
+RING, ELEM = port_rglru.RING, port_rglru.ELEMENTWISE
+RGLRU_SHAPES = [(1, 1, 64, RING, RING), (3, 7, 100, RING, ELEM),
+                (2, 2048, 2560, RING, RING), (2, 2047, 2560, RING, RING),
+                (1, 333, 37, ELEM, ELEM), (2, 200, 36, RING, ELEM),
+                (3, 130, 96, RING, RING), (1, 100, 40, RING, RING)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
-@pytest.mark.parametrize("batch,seq,width", [
-    (1, 1, 64), (3, 7, 100), (2, 2048, 2560), (1, 333, 37)])
-def test_rglru_scan_kernel_matches_plain(batch, seq, width, dtype):
+@pytest.mark.parametrize("batch,seq,width,f32_variant,bf16_variant",
+                         RGLRU_SHAPES)
+def test_rglru_scan_kernel_matches_plain(batch, seq, width, f32_variant,
+                                         bf16_variant, dtype):
+    """Bit for bit the plain version, on either variant, at every
+    block_t."""
     dev = _card()
     tdt = ATTN_DTYPES[dtype][0]
+    variant = f32_variant if dtype == "float32" else bf16_variant
     a, b, h0 = _rglru_inputs(30, batch, seq, width, dev, tdt)
     want = rglru_scan_ref(a, b, h0)
     before = port_rglru.LAUNCHES
     for block_t in (1, 16, 128):
         got = port_rglru.rglru_scan(a, b, h0, block_t=block_t)
         torch.cuda.synchronize()
+        assert port_rglru.LAST_VARIANT == variant
         assert got.dtype == torch.float32 and got.shape == a.shape
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        _same_bits(got, want)
     assert port_rglru.LAUNCHES == before + 3
     got = port_rglru.rglru_scan(a, b, h0.to(tdt))        # h0 in a's dtype
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, rglru_scan_ref(a, b, h0.to(tdt)),
-                               rtol=1e-5, atol=1e-6)
+    _same_bits(got, rglru_scan_ref(a, b, h0.to(tdt)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(ATTN_DTYPES))
+@pytest.mark.parametrize("width", [96, 99])
+def test_rglru_scan_kernel_non_finite_inputs(width, dtype):
+    """A NaN or Inf in a or b at one step gives plain's non-finite
+    positions, in that channel from that step on, on either variant."""
+    dev = _card()
+    tdt = ATTN_DTYPES[dtype][0]
+    a, b, h0 = _rglru_inputs(31, 2, 150, width, dev, tdt)
+    a[0, 5, 3] = float("nan")
+    b[0, 9, 40] = float("inf")
+    a[1, 20, 70] = float("inf")
+    b[1, 64, 90] = float("-inf")
+    want = rglru_scan_ref(a, b, h0)
+    got = port_rglru.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    per_copy = 16 // a.element_size()
+    assert port_rglru.LAST_VARIANT == (RING if width % per_copy == 0
+                                       else ELEM)
+    _same_bits(got, want)
+    for n, t, c in ((0, 5, 3), (0, 9, 40), (1, 20, 70), (1, 64, 90)):
+        assert bool(torch.isfinite(got[n, :t, c]).all())
+        assert not bool(torch.isfinite(got[n, t:, c]).any())
+    assert int((~torch.isfinite(got)).sum()) == int(
+        (~torch.isfinite(want)).sum())
+
+
+@pytest.mark.cuda
+def test_rglru_scan_kernel_unaligned_inputs_take_elementwise():
+    """a and b that do not start 16-byte aligned take the element-wise
+    kernel; the C entry refuses the ring for them, and for a width that
+    is no whole number of 16-byte copies."""
+    dev = _card()
+    a, b, h0 = _rglru_inputs(32, 2, 70, 64, dev, torch.float32)
+    flat = torch.empty(2 * a.numel() + 2, device=dev)
+    ua = flat[1:1 + a.numel()].view(a.shape)
+    ub = flat[2 + a.numel():].view(b.shape)
+    ua.copy_(a)
+    ub.copy_(b)
+    assert port_rglru.kernel_variant(ua, ub) == ELEM
+    got = port_rglru.rglru_scan(ua, ub, h0)
+    torch.cuda.synchronize()
+    assert port_rglru.LAST_VARIANT == ELEM
+    _same_bits(got, rglru_scan_ref(a, b, h0))
+    lib = port_rglru._lib()
+    out = torch.empty_like(got)
+    stream = torch.cuda.current_stream().cuda_stream
+    for x, y, width in ((ua, ub, 64), (a, b, 62)):
+        rc = lib.repro_rglru_scan(x.data_ptr(), y.data_ptr(), h0.data_ptr(),
+                                  out.data_ptr(), 2, 70, width, 0, 1, stream)
+        assert rc != 0
 
 
 @pytest.mark.cuda

@@ -194,15 +194,18 @@ def test_3xtf32_split_keeps_inf_and_nan_as_the_f32_product(m, n, k):
 
 
 @pytest.mark.parametrize("name,includes", [
-    ("gemm", True), ("flash_attention", True), ("rglru_scan", False),
-    ("mlstm", True)])
+    ("gemm", True), ("flash_attention", True), ("rglru_scan", True),
+    ("mlstm", True), ("standalone", False)])
 def test_library_name_hashes_the_included_headers(name, includes, tmp_path,
                                                   monkeypatch):
     """A library's name follows its source and the csrc headers it
     includes: an edited shared header renames the libraries of the
-    sources that include it and no other."""
+    sources that include it and no other (``standalone.cu``, written here,
+    includes none)."""
     for path in Path(build.CSRC).iterdir():
         shutil.copy(path, tmp_path)
+    (tmp_path / "standalone.cu").write_text(
+        "#include <cuda_runtime.h>\n__global__ void k() {}\n")
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
     before = build._target(name)
     with open(tmp_path / "mma_sync.cuh", "a") as fh:

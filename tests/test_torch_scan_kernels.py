@@ -16,7 +16,18 @@ only on the card; here a torch emulation of its tiled online form, with
 its tiles and its rounding points, is held to the TPU kernel in interpret
 mode in bfloat16 (3e-2) and to the plain version in float32 (1e-5: the
 tiling alone moves nothing but the order of fp32 sums).
+
+The RG-LRU scan's ring kernel (csrc/rglru_scan.cu, ``rglru_ring_kernel``)
+likewise: a torch emulation of its indexing (blocks of 32 channels, tiles
+of its rows copied 16 bytes at a time into its ring slots, zero-filled
+lanes and rows) is held bit for bit to the plain version and, with each
+step contracted to one rounding as XLA contracts the TPU kernel's step to
+a fused multiply-add on the CPU, bit for bit to the TPU kernel in
+interpret mode.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +39,7 @@ from repro.kernels import ref as ref_ref
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.kernels.mlstm import mlstm_parallel as ref_mlstm
 from repro.kernels.rglru import rglru_scan as ref_rglru
+from repro_torch.kernels import build as port_build
 from repro_torch.kernels import mlstm as port_mlstm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
@@ -120,6 +132,133 @@ def test_rglru_scan_refusals_and_no_launch_on_the_host():
         port_rglru.rglru_scan(a, a.double(), torch.zeros((1, 4)))
     with pytest.raises(ValueError, match="block_t"):
         port_rglru.rglru_scan(a, a, torch.zeros((1, 4)), block_t=0)
+
+
+def _ring_constants():
+    """LANES, RING_ROWS and RING_STAGES as csrc/rglru_scan.cu defines them."""
+    src = (Path(port_build.CSRC) / "rglru_scan.cu").read_text()
+    return [int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for name in ("LANES", "RING_ROWS", "RING_STAGES")]
+
+
+def _rglru_ring_emulation(a, b, h0, fused=False):
+    """csrc/rglru_scan.cu's ring kernel in torch, every (batch row, block
+    of 32 channels) at once: tile i of RING_ROWS steps is copied into ring
+    slot i % RING_STAGES, RING_STAGES - 1 tiles ahead of the walk, by each
+    lane's 16-byte copies (zero-filled past ``width`` and past ``seq``);
+    each step is a rounded product, then a rounded sum (``fused``: one
+    rounding, from the exact float64 product).  Returns the output and the
+    tiles walked."""
+    lanes, rows, stages = _ring_constants()
+    batch, seq, width = a.shape
+    per_copy = 16 // a.element_size()
+    assert width % per_copy == 0, "the element-wise variant's shape"
+    per_row = lanes // per_copy                 # copies a tile row
+    rows_per_pass = lanes // per_row
+    n_blk, n_tiles = -(-width // lanes), -(-seq // rows)
+    flat_a, flat_b = a.reshape(-1), b.reshape(-1)
+    lane = torch.arange(lanes)
+    crow, ccol = lane // per_row, (lane % per_row) * per_copy
+    n = torch.arange(batch)[:, None, None, None, None]      # (n, blk, k, lane, e)
+    c0 = (torch.arange(n_blk) * lanes)[None, :, None, None, None]
+    r = (crow[None, :] + torch.arange(rows // rows_per_pass)[:, None]
+         * rows_per_pass)[None, None, :, :, None]
+    col = ccol[None, None, None, :, None] + torch.arange(per_copy)
+    ring = torch.full((stages, 2, batch, n_blk, rows, lanes), torch.nan)
+
+    def load_tile(tile):
+        t0 = tile * rows
+        ok = (c0 + ccol[None, None, None, :, None] < width) & (t0 + r < seq)
+        off = torch.where(ok, (n * seq + t0 + r) * width + c0 + col, 0)
+        covered = torch.zeros((batch, n_blk, rows, lanes), dtype=torch.int64)
+        for x, src in enumerate((flat_a, flat_b)):
+            vals = torch.where(ok, src[off].float(), 0.0)
+            slot = ring[tile % stages, x]
+            idx = (n.expand_as(off), c0.expand_as(off) // lanes,
+                   r.expand_as(off), col.expand_as(off))
+            slot[idx] = vals
+            covered.index_put_(idx, torch.ones_like(off), accumulate=True)
+        assert bool((covered == 2).all()), "each element copied once"
+
+    c = (torch.arange(n_blk)[:, None] * lanes + lane).reshape(-1)
+    live = c < width
+    h = torch.zeros((batch, n_blk * lanes))
+    h[:, live] = h0.float()
+    out = torch.empty((batch, seq, width))
+    for s in range(stages - 1):
+        if s < n_tiles:
+            load_tile(s)
+    for i in range(n_tiles):
+        if i + stages - 1 < n_tiles:
+            load_tile(i + stages - 1)
+        sa, sb = (ring[i % stages, x].reshape(batch, -1, rows, lanes)
+                  .transpose(1, 2).reshape(batch, rows, -1) for x in (0, 1))
+        for t in range(min(rows, seq - i * rows)):
+            if fused:
+                h = (sa[:, t].double() * h.double() + sb[:, t]).float()
+            else:
+                h = sa[:, t] * h + sb[:, t]
+            out[:, i * rows + t] = h[:, live]
+    return out, n_tiles
+
+
+def _same_bits(got, want):
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,batch,seq,width", [
+    ("float32", 1, 1, 32), ("float32", 2, 64, 64), ("float32", 3, 65, 36),
+    ("float32", 2, 200, 100), ("float32", 1, 300, 68),
+    ("bfloat16", 1, 1, 8), ("bfloat16", 2, 100, 40),
+    ("bfloat16", 2, 257, 96)])
+def test_rglru_ring_kernel_design_emulated(dtype, batch, seq, width):
+    """The ring kernel's indexing, ragged in seq (past whole tiles, below
+    one tile and below the ring's depth) and in width (a partial block of
+    32 channels): bit for bit the plain version and, contracted as XLA
+    contracts the TPU kernel's step, the TPU kernel at every block_t."""
+    a, b, h0 = _rglru_inputs(12, batch, seq, width)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ja, jb = jnp.asarray(a, jdt), jnp.asarray(b, jdt)
+    ta, tb = (torch.tensor(_np(x)).to(getattr(torch, dtype))
+              for x in (ja, jb))
+    th0 = torch.from_numpy(h0)
+    got, walked = _rglru_ring_emulation(ta, tb, th0)
+    rows = _ring_constants()[1]
+    assert walked == -(-seq // rows)
+    _same_bits(got, rglru_scan_ref(ta, tb, th0))
+    fused, _ = _rglru_ring_emulation(ta, tb, th0, fused=True)
+    for block_t in (1, 16, 128):
+        want = ref_rglru(ja, jb, jnp.asarray(h0), block_t=block_t,
+                         interpret=True)
+        _same_bits(fused, torch.tensor(_np(want)))
+    np.testing.assert_allclose(got.numpy(), fused.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rglru_kernel_variant_choice():
+    """The ring where its 16-byte copies take a and b: the path's shape
+    in both dtypes, widths of whole copies (36 in float32); the
+    element-wise kernel for other widths (37; 36 and 100 in bfloat16) and
+    for a or b that does not start 16-byte aligned.  The host takes the
+    plain version and records no variant."""
+    def variant(shape, dtype, shift=0):
+        flat = torch.empty(2 * int(np.prod(shape)) + shift, dtype=dtype)
+        a = flat[shift:shift + int(np.prod(shape))].view(shape)
+        return port_rglru.kernel_variant(a, flat[-a.numel():].view(shape))
+
+    ring, elem = port_rglru.RING, port_rglru.ELEMENTWISE
+    for dtype in (torch.float32, torch.bfloat16):
+        assert variant((2, 2048, 2560), dtype) == ring
+        assert variant((2, 7, 37), dtype) == elem
+        assert variant((1, 4, 64), dtype, shift=1) == elem
+        assert variant((1, 4, 64), dtype, shift=16 // (dtype.itemsize)) \
+            == ring
+    assert variant((1, 4, 36), torch.float32) == ring
+    assert variant((1, 4, 36), torch.bfloat16) == elem
+    assert variant((3, 5, 100), torch.bfloat16) == elem
+    a = torch.rand((1, 8, 64))
+    port_rglru.rglru_scan(a, a, torch.zeros((1, 64)))
+    assert port_rglru.LAST_VARIANT is None
 
 
 def _mlstm_inputs(seed, b, h, s, d):
