@@ -55,7 +55,18 @@ xlstm-125m):
                ``pathfind validate`` (rc 0 required);
   4. predict   full-size qwen1.5-0.5b x train_4k on the tpu_v5e template,
                uncalibrated and with the phase-3 profile applied, checked
-               against the same prediction on the host;
+               against the same prediction on the host; then the search
+               layer (``core/pathfinder.py``): (a) ``pathfind plan`` for
+               qwen1.5-0.5b x train_4k at 16x16, (b) the in-memory
+               ``sweep`` of every arch x train_4k x meshes 8x8 and 16x16
+               x every logic node, HBM generation and network of the
+               techlib, (c) one matrix-mode call of 16,384 rows for one
+               skeleton (the AGE points of (b) scaled by seeded factors in
+               [0.8, 1.2]); each on the card and on the host, the card's
+               rows held to the host's (1e-4 relative) and (b)'s to the
+               reference's rows in ``tests/test_torch_golden_sweep.npz``,
+               printing points/s on both and the card's per-row eager
+               rate;
   5. serve     full-width qwen1.5-0.5b (24 layers, random weights from a
                seed): ``serve(batch=8, prompt_len=128, gen=32)``, then a
                2048-token prompt forwarded 2047 tokens into a cache and
@@ -83,6 +94,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -203,6 +215,12 @@ MLSTM_PATH = ((2, 4, 2048, 192), (2, 4, 2047, 192))
 MLSTM_TIMED = (MLSTM_PATH[0], *((2, 4, 2048, d) for d in (32, 64, 128)))
 MLSTM_BLOCKS = ((128, 128), (32, 64))
 MLSTM_TOLS = {"float32": 3e-3, "bfloat16": 3e-2}   # rtol = atol
+# phase 4's search work: None takes every arch lmgraph builds, every
+# technology of the techlib
+SEARCH = dict(arches=None, meshes=((8, 8), (16, 16)), logic=None, hbm=None,
+              net=None, matrix_rows=16384, eager_rows=8)
+SEARCH_RTOL = 1e-4      # the card's rows against the host's and the golden
+GOLDEN_SWEEP = ROOT / "tests" / "test_torch_golden_sweep.npz"
 SERVE = dict(batch=8, prompt_len=128, gen=32, use_reduced=False)
 CHECK_LEN = 2048        # phase 5's prefill-vs-decode consistency prompt
 RECURRENT = dict(archs=("recurrentgemma-2b", "xlstm-125m"), prefill=(2, 2048),
@@ -850,6 +868,129 @@ def phase_predict(device, profile_path: str) -> None:
               f"L1 {tiling[1]} L0 {tiling[2]}")
 
 
+def _held(got, want, what: str) -> None:
+    """``got`` within SEARCH_RTOL of ``want``, value by value."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and np.isfinite(got).all(), what
+    bad = np.abs(got - want) > SEARCH_RTOL * np.abs(want)
+    assert not bad.any(), (f"{what}: {int(bad.sum())} values off, first "
+                           f"{got[bad][:4]} vs {want[bad][:4]}")
+
+
+def phase_search(device, search: dict) -> None:
+    """Phase 4's search layer: (a) plan, (b) sweep, (c) a matrix call, each
+    on the card and on the host (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch import pathfind
+    from repro_torch.configs.base import ARCH_IDS, SHAPE_CELLS, get_config
+    from repro_torch.core import age, lmgraph, pathfinder, planner, techlib
+    from repro_torch.core.placement import mesh_system
+    from repro_torch.core.roofline import PPEConfig
+    devices = (device, torch.device("cpu"))
+    card = card_line() if device.type == "cuda" else "host rehearsal"
+
+    print("-- (a) pathfind plan qwen1.5-0.5b x train_4k at 16x16")
+    assert pathfind.main(["plan", "--arch", "qwen1.5-0.5b", "--cell",
+                          "train_4k", "--mesh", "16x16", "--device",
+                          str(device)]) == 0
+    plans = [planner.plan(get_config("qwen1.5-0.5b"),
+                          SHAPE_CELLS["train_4k"], (16, 16),
+                          ("data", "model"), device=dev) for dev in devices]
+    assert plans[0].strategy == plans[1].strategy
+    _held(*([p.predicted_step_s, *p.predicted_breakdown.values()]
+            for p in plans), "plan")
+
+    # every config module: the registered archs and the paper's LSTM
+    arches = search["arches"] or tuple(
+        get_config(a).name for a in (*ARCH_IDS, "paper-lm"))
+    grid = dict(arches=arches, cells=("train_4k",),
+                mesh_shapes=search["meshes"],
+                logic_nodes=search["logic"] or techlib.LOGIC_NODES,
+                hbms=search["hbm"] or techlib.HBM_GENERATIONS,
+                nets=search["net"] or techlib.NETWORK_GENERATIONS)
+    print(f"-- (b) sweep: {len(grid['arches'])} archs x train_4k x "
+          f"{len(grid['mesh_shapes'])} meshes x {len(grid['logic_nodes'])} "
+          f"logic x {len(grid['hbms'])} HBM x {len(grid['nets'])} nets")
+    sweeps = []
+    for dev in devices:
+        t0 = time.perf_counter()
+        res = pathfinder.sweep(**grid, cache=None, device=dev)
+        dt = time.perf_counter() - t0
+        sweeps.append(res)
+        print(f"  sweep on {dev.type}: {len(res.points)} points in "
+              f"{dt:.3f}s = {len(res.points) / dt:.1f} points/s  [{card}]")
+    metrics = ("time_s", "compute_s", "comm_s", "exposed_comm_s")
+    labels, rows = [], []
+    for res in sweeps:
+        labels.append(["|".join((p.arch, p.cell, "x".join(map(str, p.mesh)),
+                                 p.logic, p.hbm, p.net, p.strategy.name))
+                       for p in res.points])
+        rows.append([[getattr(p, m) for m in metrics] for p in res.points])
+    assert labels[0] == labels[1]
+    _held(rows[0], rows[1], "sweep, card against host")
+    best = [res.points.index(res.best()) for res in sweeps]
+    assert labels[0][best[0]] == labels[1][best[1]]
+    print(f"  best: {labels[0][best[0]]} -> "
+          f"{sweeps[0].points[best[0]].time_s * 1e3:.2f} ms")
+    with np.load(GOLDEN_SWEEP) as golden:
+        assert list(golden["metrics"]) == list(metrics)
+        where = {label: i for i, label in enumerate(labels[0])}
+        idx = [where[label] for label in golden["labels"]]
+        _held(np.asarray(rows[0])[idx], golden["rows"],
+              "sweep, card against the reference's golden rows")
+        print(f"  {len(idx)} rows held to {GOLDEN_SWEEP.name}")
+
+    n = search["matrix_rows"]
+    print(f"-- (c) one matrix call of {n} rows: qwen1.5-0.5b x train_4k x "
+          f"16x16")
+    cfg, cell = get_config("qwen1.5-0.5b"), SHAPE_CELLS["train_4k"]
+    graph = lmgraph.build_graph(cfg, cell)
+    strategy = planner.candidate_strategies(cfg, cell, (16, 16))[0]
+    system = mesh_system((16, 16))
+    ppe = PPEConfig(n_tilings=8)
+    hw = {dev.type: [age.generate(techlib.make_tech_config(*t),
+                                  age.Budgets.default(), device=dev)
+                     for t in itertools.product(grid["logic_nodes"],
+                                                grid["hbms"], grid["nets"])]
+          for dev in devices}
+    base = pathfinder.pack_hw_many(hw["cpu"])
+    matrix = base[np.arange(n) % len(base)].copy()
+    matrix[:, :13] *= (0.8 + 0.4 * torch.rand(
+        (n, 13), generator=torch.Generator().manual_seed(0))).numpy()
+    out = {}
+    for dev in devices:
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out[dev.type] = pathfinder.evaluate(
+                template=hw[dev.type][0], matrix=matrix, graph=graph,
+                strategy=strategy, system=system, ppe=ppe, cache=None)
+            times.append(time.perf_counter() - t0)
+        print(f"  matrix on {dev.type}: {n} rows in {times[0]:.4f}s, then "
+              f"{times[1]:.4f}s = {n / min(times):.1f} points/s  [{card}]")
+    _held(out[device.type], out["cpu"], "matrix, card against host")
+    print(f"  all {n} rows held to the host's")
+    if device.type == "cuda":       # one group of (b)'s size, then (c)
+        for rows in (len(base), n):
+            _device_profile(lambda: pathfinder.evaluate(
+                template=hw[device.type][0], matrix=matrix[:rows],
+                graph=graph, strategy=strategy, system=system, ppe=ppe,
+                cache=None), 1, f"matrix call of {rows} rows")
+
+    k = search["eager_rows"]
+    for dev in devices:
+        ev = pathfinder.BatchedEvaluator(graph, strategy, system=system,
+                                         ppe=ppe, cache=None, device=dev)
+        t0 = time.perf_counter()
+        eager = [ev.evaluate([a], min_batch_jit=2) for a in hw[dev.type][:k]]
+        dt = time.perf_counter() - t0
+        print(f"  eager rows on {dev.type}: {k} in {dt:.3f}s = "
+              f"{k / dt:.2f} points/s  [{card}]")
+        assert np.isfinite(np.concatenate(eager)).all()
+
+
 def _consistency(model, params, device, check_len: int) -> None:
     """Forward ``check_len - 1`` tokens into a cache, step the last one, and
     hold its logits to the last position of a ``check_len``-token forward
@@ -1128,7 +1269,7 @@ def _check_launches(mods: dict, expected: dict, device, what: str) -> dict:
 
 def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
         check_len: int, recurrent: dict, steps: int = 80,
-        starts: int = 6) -> list:
+        starts: int = 6, search: dict = SEARCH) -> list:
     """Phases 2-6; returns the per-kernel result objects.  ``cases`` maps
     each kernel to its (compared, timed) cases."""
     from repro_torch.configs.base import get_config, reduced
@@ -1146,6 +1287,7 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     print(f"# phase 3: {t2 - t1:.2f}s (measuring {out.stats.elapsed_s:.2f}s, "
           f"the rest fit, reports and validate)")
     phase_predict(device, out.profile_path)
+    phase_search(device, search)
     t3 = time.perf_counter()
     print(f"# phase 4: {t3 - t2:.2f}s")
     serve_launches = phase_serve(device, serve_kw, check_len)

@@ -5,12 +5,12 @@ parallelism strategies the runtime supports, scores each with CrossFlow,
 and emits the argmin as a `ShardingPlan`.  The prediction is recorded so a
 run can be compared against it.
 
-The reference scores all candidates in one batched-engine call
-(``pathfinder.evaluate``), whose scalar function is exactly
-``simulate.predict`` (``repro/core/pathfinder.py:577-591``).  Until the
-port's batched evaluator lands (ROADMAP queue 1 item 4), `plan` calls the
-port's `simulate.predict` once per candidate: the same numbers, one
-candidate at a time.
+All candidates are scored in one call of the batched engine
+(``pathfinder.evaluate``), on the device of the hardware point, as the
+reference scores them: one group per skeleton, vmapped when a group has
+``min_batch_jit`` points or more, each point on its own leaves below that,
+and through the engine's prediction cache, so a replanned (arch, cell,
+mesh) is free.
 
 `candidate_strategies` is also the strategy axis of the sweep engine.
 """
@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.core import age as age_lib
-from repro_torch.core import lmgraph, simulate
+from repro_torch.core import lmgraph, pathfinder
 from repro_torch.core.age import MicroArch
 from repro_torch.core.parallelism import Strategy
 from repro_torch.core.placement import mesh_system
@@ -101,13 +101,15 @@ def plan(cfg: ArchConfig, cell: ShapeCell, mesh_shape: Tuple[int, ...],
     ppe = ppe or PPEConfig(n_tilings=8)        # fast mode for planning
     system = mesh_system(mesh_shape)
     graph = lmgraph.build_graph(cfg, cell)
+    cands = candidate_strategies(cfg, cell, mesh_shape)
+    rows = pathfinder.evaluate(
+        points=[pathfinder.EvalPoint(hw, graph, st, system=system)
+                for st in cands], ppe=ppe)
     best = None
-    for st in candidate_strategies(cfg, cell, mesh_shape):
-        bd = simulate.predict(hw, graph, st, system=system, cfg=ppe)
-        row = tuple(float(x) for x in (bd.total_s, bd.compute_s, bd.comm_s,
-                                       bd.exposed_comm_s))
-        if best is None or row[0] < best[0]:
-            best = (row[0], st, row)
+    for st, row in zip(cands, rows):
+        t = float(row[0])
+        if best is None or t < best[0]:
+            best = (t, st, row)
     assert best is not None
     t, st, row = best
     rules = list(DEFAULT_RULES)
@@ -129,8 +131,8 @@ def plan(cfg: ArchConfig, cell: ShapeCell, mesh_shape: Tuple[int, ...],
         mesh_axes=tuple(mesh_axes), strategy=st, rules=tuple(rules),
         predicted_step_s=t,
         predicted_breakdown={
-            "compute_s": row[1],
-            "comm_s": row[2],
-            "exposed_comm_s": row[3],
+            "compute_s": float(row[1]),
+            "comm_s": float(row[2]),
+            "exposed_comm_s": float(row[3]),
         },
         notes="; ".join(notes))

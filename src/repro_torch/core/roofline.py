@@ -119,8 +119,14 @@ _GEMM_CACHE_LOCK = threading.Lock()
 
 def _carries_graph(v) -> bool:
     """True for a value that must not be cached: a tensor that requires
-    grad (its result would carry an autograd graph) or a batched one."""
-    return torch.is_tensor(v) and (v.requires_grad or v.dim() > 0)
+    grad (its result would carry an autograd graph), a batched one, or one
+    wrapped by a ``torch.func`` transform.  Under ``torch.func.vmap`` a
+    leaf looks 0-d and has no value to key on (``float`` of it raises), as
+    a JAX tracer has none: the reference skips its cache for those
+    (``is_tracer``), and so does this."""
+    return torch.is_tensor(v) and (
+        v.requires_grad or v.dim() > 0
+        or torch._C._functorch.is_functorch_wrapped_tensor(v))
 
 
 def _cache_key(arch: MicroArch, m, n, k, b, dtype_bytes, cfg: PPEConfig):

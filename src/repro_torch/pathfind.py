@@ -1,7 +1,28 @@
-"""DeepFlow pathfinding CLI, PyTorch port — the calibration subcommands.
+"""DeepFlow pathfinding CLI, PyTorch port.
 
 Subcommands (the reference's flags, plus ``--device``; default ``cuda``,
 and a missing card is an error, never a silent fall-back to the host):
+
+  sweep   cross-product (arch x cell x mesh x logic x hbm x net) scored by
+          the batched evaluator (repro_torch.core.pathfinder); prints CSV
+          (optionally only the Pareto frontier) and can write it to a
+          file; the best point goes to stderr:
+
+              PYTHONPATH=src python -m repro_torch.pathfind sweep \\
+                  --arch qwen1.5-0.5b --cell train_4k \\
+                  --mesh 8x8 --mesh 16x16 \\
+                  --logic N7,N5,N3 --hbm HBM2E,HBM3 --csv sweep.csv
+
+          This is the reference's in-memory sweep.  The flags of the
+          reference's chunked, resumable runner (--out, --resume,
+          --scenario, --scale, --profile, --arch all, ...) are not flags
+          here and exit 2: the runner comes later (ROADMAP queue 1 item 6).
+
+  plan    the CrossFlow -> runtime bridge: best runtime-realizable strategy
+          for one (arch, cell, mesh) on the TPU-v5e micro-arch:
+
+              PYTHONPATH=src python -m repro_torch.pathfind plan \\
+                  --arch qwen1.5-0.5b --cell train_4k --mesh 16x16
 
   calibrate  measurement-driven calibration (repro_torch.calibrate): run the
           microbenchmark suite on the card (cuBLAS GEMMs, the hand-written
@@ -22,8 +43,8 @@ and a missing card is an error, never a silent fall-back to the host):
 
 Every file written here is in the reference's format, so the reference's
 ``python -m repro.pathfind sweep --profile DIR/profile.json`` consumes a
-profile fitted on the card.  The other subcommands (sweep, plan, soe,
-cooptimize, explore, size) come with later slices of the port.
+profile fitted on the card.  The other subcommands (soe, cooptimize,
+explore, size, sweep-worker) come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -32,7 +53,50 @@ import argparse
 import dataclasses
 import os
 import sys
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
+
+
+def _mesh(text: str) -> Tuple[int, ...]:
+    try:
+        dims = tuple(int(x) for x in text.lower().split("x"))
+    except ValueError:
+        dims = ()
+    if not dims or any(d <= 0 for d in dims):
+        raise argparse.ArgumentTypeError(
+            f"bad mesh {text!r}; expected e.g. 16x16 or 2x16x16")
+    return dims
+
+
+def _csv_list(text: str) -> List[str]:
+    return [x.strip() for x in text.split(",") if x.strip()]
+
+
+def _add_sweep_flags(sw) -> None:
+    sw.add_argument("--arch", action="append", default=None,
+                    help="model arch id (repeatable)")
+    sw.add_argument("--cell", action="append", default=None,
+                    help="shape cell name (repeatable; default train_4k)")
+    sw.add_argument("--mesh", action="append", type=_mesh, default=None,
+                    help="mesh shape like 16x16 (repeatable)")
+    sw.add_argument("--logic", type=_csv_list, default=["N7"],
+                    help="comma-separated logic nodes (default N7)")
+    sw.add_argument("--hbm", type=_csv_list, default=["HBM2E"],
+                    help="comma-separated HBM generations")
+    sw.add_argument("--net", type=_csv_list, default=["IB-NDR-X8"],
+                    help="comma-separated inter-node networks")
+    sw.add_argument("--area", type=float, default=None,
+                    help="proc chip area budget (mm^2)")
+    sw.add_argument("--power", type=float, default=None,
+                    help="node power budget (W)")
+    sw.add_argument("--tilings", type=int, default=8,
+                    help="PPE tiling samples per level")
+    sw.add_argument("--pareto", type=_csv_list, default=None, metavar="OBJS",
+                    help="print only the Pareto frontier over these "
+                         "objectives (e.g. time_s,devices)")
+    sw.add_argument("--csv", default=None, help="also write CSV here")
+    sw.add_argument("--device", default="cuda",
+                    help="where the evaluation runs (default cuda; cpu "
+                         "only when asked)")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -40,6 +104,16 @@ def _parser() -> argparse.ArgumentParser:
                                 description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    sw = sub.add_parser("sweep", help="batched design-space sweep")
+    _add_sweep_flags(sw)
+
+    pl = sub.add_parser("plan", help="runtime sharding plan for one point")
+    pl.add_argument("--arch", required=True)
+    pl.add_argument("--cell", required=True)
+    pl.add_argument("--mesh", type=_mesh, required=True)
+    pl.add_argument("--device", default="cuda",
+                    help="where the prediction runs (default cuda)")
 
     ca = sub.add_parser("calibrate",
                         help="measure the card and fit a calibration "
@@ -221,11 +295,83 @@ def _cmd_validate(args) -> int:
     return 0
 
 
+def _cmd_sweep(args) -> int:
+    """The reference's in-memory sweep (``repro/pathfind.py:_cmd_sweep``)."""
+    from repro_torch.core import pathfinder
+    from repro_torch.core.age import Budgets
+    from repro_torch.core.roofline import PPEConfig
+
+    runner = args.extra + (["--arch all"] if args.arch and "all" in args.arch
+                           else [])
+    if runner:
+        print(f"error: {' '.join(runner)}: not taken by the in-memory "
+              f"sweep; the chunked sweep runner (--out, --resume, "
+              f"--scenario, --profile, --arch all, ...) is not ported yet "
+              f"(ROADMAP queue 1 item 6)", file=sys.stderr)
+        return 2
+    if not (args.arch and args.mesh):
+        print("error: sweep needs --arch and --mesh", file=sys.stderr)
+        return 2
+    cells = args.cell or ["train_4k"]
+    budgets = Budgets.default()
+    if args.area is not None:
+        budgets = dataclasses.replace(budgets, proc_chip_area_mm2=args.area)
+    if args.power is not None:
+        budgets = dataclasses.replace(budgets, power_w=args.power)
+    result = pathfinder.sweep(
+        args.arch, cells, args.mesh, logic_nodes=args.logic,
+        hbms=args.hbm, nets=args.net, budgets=budgets,
+        ppe=PPEConfig(n_tilings=args.tilings), device=args.device)
+    points = result.points
+    if args.pareto:
+        points = result.pareto(objectives=args.pareto)
+    lines = [pathfinder.CSV_HEADER] + [p.as_csv_row() for p in points]
+    print("\n".join(lines))
+    if args.csv:
+        with open(args.csv, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        print(f"# wrote {len(points)} points to {args.csv}", file=sys.stderr)
+    best = result.best()
+    print(f"# best: {best.arch}/{best.cell} mesh="
+          f"{'x'.join(map(str, best.mesh))} {best.logic}/{best.hbm}/"
+          f"{best.net} {best.strategy.name} -> {best.time_s*1e3:.2f} ms",
+          file=sys.stderr)
+    return 0
+
+
+def _cmd_plan(args) -> int:
+    from repro_torch.configs.base import SHAPE_CELLS, get_config
+    from repro_torch.core import planner
+
+    axes = ("pod", "data", "model")[-len(args.mesh):]
+    plan = planner.plan(get_config(args.arch), SHAPE_CELLS[args.cell],
+                        args.mesh, axes, device=args.device)
+    print(f"strategy       {plan.strategy.name}")
+    print(f"predicted_step {plan.predicted_step_s*1e3:.3f} ms")
+    for k, v in plan.predicted_breakdown.items():
+        print(f"  {k:15s} {v*1e3:.3f} ms")
+    for axis, rule in plan.rules:
+        print(f"rule {axis:10s} -> {rule}")
+    if plan.notes:
+        print(f"notes: {plan.notes}")
+    return 0
+
+
 def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    # the reference's runner flags are left over here, for `_cmd_sweep`
+    # to refuse by name
+    args, extra = parser.parse_known_args(argv)
+    args.extra = extra
+    if args.extra and args.cmd != "sweep":
+        parser.error(f"unrecognized arguments: {' '.join(args.extra)}")
     try:
-        return {"calibrate": _cmd_calibrate,
+        return {"sweep": _cmd_sweep, "plan": _cmd_plan,
+                "calibrate": _cmd_calibrate,
                 "validate": _cmd_validate}[args.cmd](args)
+    except ModuleNotFoundError as e:
+        print(f"error: unknown arch (no config module): {e.name}",
+              file=sys.stderr)
     except KeyError as e:
         print(f"error: unknown name: {e}", file=sys.stderr)
     except (ValueError, AttributeError, OSError) as e:

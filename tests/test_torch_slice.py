@@ -31,7 +31,8 @@ from repro.core import age as ref_age
 from repro.core import roofline as ref_roofline
 from repro_torch import pathfind
 from repro_torch.calibrate import microbench, profiles
-from repro_torch.core import age, roofline
+from repro_torch.core import age, lmgraph, pathfinder, roofline
+from repro_torch.core.parallelism import Strategy
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -83,6 +84,16 @@ def test_entry_points_need_the_card_unless_asked(cal_dir):
         age.tpu_v5e_microarch()
     with pytest.raises(RuntimeError, match="CUDA"):
         microbench.MicrobenchRunner(microbench.default_spec("quick")).run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pathfind.main(["sweep", "--arch", "qwen1.5-0.5b", "--mesh", "8x8"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pathfind.main(["plan", "--arch", "qwen1.5-0.5b", "--cell",
+                       "train_4k", "--mesh", "16x16"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pathfinder.sweep(["qwen1.5-0.5b"], ["train_4k"], [(8, 8)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pathfinder.BatchedEvaluator(lmgraph.gemm_graph(64, 64, 64),
+                                    Strategy("RC", kp1=1, kp2=1, dp=1))
 
 
 TINY = dict(suite="slice", gemm_shapes=((64, 64, 64), (128, 128, 256)),
@@ -163,11 +174,21 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     recurrent = dict(cs.RECURRENT, prefill=(2, 16), check_len=16,
                      serve=dict(batch=2, prompt_len=4, gen=2),
                      use_reduced=True)
+    # phase 4's search work on the golden file's grid, a short matrix
+    search = dict(arches=("qwen1.5-0.5b", "recurrentgemma-2b"),
+                  meshes=((8, 8), (16, 16)), logic=("N7", "N5", "N3"),
+                  hbm=("HBM2E", "HBM3"), net=("IB-NDR-X8",), matrix_rows=256,
+                  eager_rows=2)
     rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
                   dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
-                  16, recurrent, steps=3, starts=2)
+                  16, recurrent, steps=3, starts=2, search=search)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
+    assert "strategy       RC-1-16-d16-p1" in out
+    assert "sweep on cpu: 24 points" in out
+    assert "24 rows held to test_torch_golden_sweep.npz" in out
+    assert "all 256 rows held to the host's" in out
+    assert "eager rows on cpu: 2 in" in out
     assert "decode_step" in out and "plan RC-1-1-d1-p1" in out
     assert "phase 6: recurrentgemma-2b-smoke" in out
     assert "phase 6: xlstm-125m-smoke" in out
