@@ -6,7 +6,8 @@
 drives the port's main paths on the card, through the functions a user
 calls: measure -> fit -> profile -> report -> validate
 (``python -m repro_torch.pathfind calibrate|validate``), a full-size
-CrossFlow prediction, serving full-width qwen1.5-0.5b
+CrossFlow prediction, the search layer and the chunked sweep runner
+(``pathfind plan|sweep|size``), serving full-width qwen1.5-0.5b
 (``python -m repro_torch.launch.serve``), and the recurrent families at
 full width (``Model.prefill`` and ``serve`` of recurrentgemma-2b and
 xlstm-125m):
@@ -66,7 +67,20 @@ xlstm-125m):
                rows held to the host's (1e-4 relative) and (b)'s to the
                reference's rows in ``tests/test_torch_golden_sweep.npz``,
                printing points/s on both and the card's per-row eager
-               rate;
+               rate; (d) the chunked runner through ``pathfind sweep
+               --out DIR [--resume]`` and ``pathfind size --from DIR``:
+               the serving-traffic scenario on the phase-3 profile (every
+               arch x 8x8, 16x16 x N7, N5 x HBM2E, HBM3, objectives
+               energy, cost, goodput, two qps values), stopped after half
+               its chunks on the card and resumed (no chunk evaluated
+               twice), held to an uninterrupted host run (the same spec
+               fingerprint and chunk hashes, records within 1e-4); the
+               train, serving and serving-traffic scenarios of the same
+               axes uncalibrated on card and host, the card's records
+               held to the host's and, for two archs, to the
+               reference's own in ``tests/test_torch_golden_runner.jsonl``
+               (1e-4); fleet sizing over the card's directory printing
+               the host's text; points/s of every sweep on both;
   5. serve     full-width qwen1.5-0.5b (24 layers, random weights from a
                seed): ``serve(batch=8, prompt_len=128, gen=32)``, then a
                2048-token prompt forwarded 2047 tokens into a cache and
@@ -221,6 +235,22 @@ SEARCH = dict(arches=None, meshes=((8, 8), (16, 16)), logic=None, hbm=None,
               net=None, matrix_rows=16384, eager_rows=8)
 SEARCH_RTOL = 1e-4      # the card's rows against the host's and the golden
 GOLDEN_SWEEP = ROOT / "tests" / "test_torch_golden_sweep.npz"
+# phase 4 (d), the chunked runner: one set of axes for every scenario (every
+# registered arch, 2 meshes, 2 logic nodes, 2 HBM generations, the composed
+# objectives, chunks of 8 designs), each scenario's own flags, the sizing
+# query, and the archs of the axes whose records the reference wrote into
+# GOLDEN_RUNNER
+RUNNER = dict(
+    arches=("all",),
+    axes=("--mesh", "8x8", "--mesh", "16x16", "--logic", "N7,N5", "--hbm",
+          "HBM2E,HBM3", "--objectives", "energy,cost,goodput",
+          "--chunk-size", "8"),
+    scenarios={"train": (), "serving": ("--slo", "10"),
+               "serving-traffic": ("--scenario-param", "qps=0.25,1",
+                                   "--slo", "30")},
+    size=("--qps", "4", "--slo-ttft-p99", "30"),
+    golden_arches=("qwen1_5_0_5b", "recurrentgemma_2b"))
+GOLDEN_RUNNER = ROOT / "tests" / "test_torch_golden_runner.jsonl"
 SERVE = dict(batch=8, prompt_len=128, gen=32, use_reduced=False)
 CHECK_LEN = 2048        # phase 5's prefill-vs-decode consistency prompt
 RECURRENT = dict(archs=("recurrentgemma-2b", "xlstm-125m"), prefill=(2, 2048),
@@ -991,6 +1021,181 @@ def phase_search(device, search: dict) -> None:
         assert np.isfinite(np.concatenate(eager)).all()
 
 
+def runner_argv(scenario: str, runner: dict = RUNNER) -> list:
+    """``pathfind sweep`` arguments of one scenario of phase 4 (d)."""
+    return ["sweep", "--scenario", scenario,
+            *(x for a in runner["arches"] for x in ("--arch", a)),
+            *runner["axes"], *runner["scenarios"][scenario]]
+
+
+_SWEEP_LINE = re.compile(r"# sweep\[[^\]]+\] backend=serial: (\d+) points in "
+                         r"(\d+) chunks; skipped (\d+) checkpointed, "
+                         r"evaluated (\d+) \((\d+) points\)")
+
+
+def _cli(argv, ok=(0,)):
+    """``pathfind.main(argv)`` with its output captured: (exit code,
+    stdout, stderr, seconds); an exit code not in ``ok`` fails the phase.
+    Each call starts from an empty prediction cache, as a new process
+    would (the serving and serving-traffic scenarios score the same
+    points), so that each sweep's rate is its own."""
+    import contextlib
+    import io
+    from repro_torch import pathfind
+    from repro_torch.core import pathfinder
+    pathfinder.clear_prediction_cache()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = pathfind.main([str(a) for a in argv])
+    dt = time.perf_counter() - t0
+    assert rc in ok, (f"pathfind {' '.join(map(str, argv))} exited {rc}: "
+                      f"{err.getvalue()[-2000:]}")
+    return rc, out.getvalue(), err.getvalue(), dt
+
+
+def _sweep_counts(err: str) -> tuple:
+    """(points, chunks, skipped, evaluated chunks, evaluated points) from
+    a ``# sweep[...]`` line."""
+    m = _SWEEP_LINE.search(err)
+    assert m, err
+    return tuple(int(x) for x in m.groups())
+
+
+def _jsonl(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def _held_records(got: list, want: list, what: str) -> int:
+    """``got`` records equal to ``want`` key by key: labels, flags and the
+    non-finite (None) pattern exactly, numbers within SEARCH_RTOL.
+    Returns the numbers compared."""
+    assert [r["key"] for r in got] == [r["key"] for r in want], what
+    n = 0
+    for g, w in zip(got, want):
+        assert list(g) == list(w), (what, w["key"], list(g), list(w))
+        for k, v in w.items():
+            if isinstance(v, float):
+                assert isinstance(g[k], float) and \
+                    abs(g[k] - v) <= SEARCH_RTOL * abs(v), \
+                    (what, w["key"], k, g[k], v)
+                n += 1
+            else:
+                assert g[k] == v, (what, w["key"], k, g[k], v)
+    return n
+
+
+def _printed_close(got: str, want: str) -> bool:
+    """Text equal apart from numbers within SEARCH_RTOL plus one unit in
+    the last printed digit; True when the text is identical."""
+    num = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]\d+)?")
+    assert num.split(got) == num.split(want), (got, want)
+    for a, b in zip(num.findall(got), num.findall(want)):
+        mant, _, exp = b.partition("e")
+        unit = 10.0 ** (int(exp or 0) - len(mant.partition(".")[2]))
+        assert abs(float(a) - float(b)) <= \
+            SEARCH_RTOL * abs(float(b)) + unit, (a, b)
+    return got == want
+
+
+def phase_runner(device, runner: dict, workdir: Path,
+                 profile_path: str) -> None:
+    """Phase 4 (d): ``pathfind sweep --out DIR [--resume]`` and ``pathfind
+    size --from DIR`` on the card and on the host (see the module
+    docstring)."""
+    import torch
+    from repro_torch.core import pathfinder, sweeprunner
+    card = card_line() if device.type == "cuda" else "host rehearsal"
+    where = {"card": str(device), "host": "cpu"}
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    print("-- (d) the chunked runner: pathfind sweep --out DIR [--resume], "
+          "pathfind size --from DIR")
+
+    # 1. serving-traffic on the phase-3 profile: uninterrupted on the host,
+    #    on the card stopped after half its chunks and resumed
+    argv = runner_argv("serving-traffic", runner) + ["--profile",
+                                                     profile_path]
+    dirs = {k: workdir / f"traffic-{k}" for k in where}
+    _, _, err, dt = _cli(argv + ["--out", dirs["host"], "--device", "cpu"])
+    n_points, n_chunks = _sweep_counts(err)[:2]
+    half = n_chunks // 2
+    print(f"  serving-traffic, calibrated, on the host: {n_points} points "
+          f"in {n_chunks} chunks, {dt:.3f}s = {n_points / dt:.1f} points/s")
+    _, _, err1, dt1 = _cli(argv + ["--out", dirs["card"], "--device",
+                                where["card"], "--max-chunks", half])
+    ckpt = dirs["card"] / "checkpoint.jsonl"
+    first = ckpt.read_text()
+    assert _sweep_counts(err1)[2:4] == (0, half) and "# incomplete" in err1
+    _, _, err2, dt2 = _cli(["sweep", "--out", dirs["card"], "--resume",
+                         "--device", where["card"]])
+    counts = _sweep_counts(err2)
+    assert counts[2:4] == (half, n_chunks - half), counts
+    lines = ckpt.read_text().splitlines()
+    assert ckpt.read_text().startswith(first)
+    assert sorted(json.loads(x)["chunk"] for x in lines) == \
+        list(range(n_chunks)), "a chunk evaluated twice or never"
+    print(f"  serving-traffic, calibrated, on {device.type}: {half} chunks, "
+          f"then --resume: skipped {half}, evaluated {n_chunks - half} "
+          f"(zero re-evaluated); {dt1 + dt2:.3f}s = "
+          f"{n_points / (dt1 + dt2):.1f} points/s  [{card}]")
+    for name in ("spec.json", "checkpoint.jsonl"):
+        assert (dirs["card"] / name).read_bytes() == \
+            (dirs["host"] / name).read_bytes(), name
+    n = _held_records(_jsonl(dirs["card"] / "results.jsonl"),
+                      _jsonl(dirs["host"] / "results.jsonl"),
+                      "resumed card sweep against the host's")
+    print(f"  spec fingerprint and {n_chunks} chunk hashes identical; "
+          f"{n} numbers of {n_points} records held to the host's")
+    if device.type == "cuda":       # one chunk of the card's sweep
+        spec, _ = sweeprunner.load_sweep(str(dirs["card"]))
+        chunk = sweeprunner.make_chunks(sweeprunner.enumerate_labels(spec),
+                                        spec.chunk_size)[0]
+        pathfinder.evaluate(spec=spec, labels=chunk.labels, cache=None,
+                            device=device)
+        _device_profile(lambda: pathfinder.evaluate(
+            spec=spec, labels=chunk.labels, cache=None, device=device), 1,
+            f"runner chunk of {len(chunk.labels)} designs")
+
+    # 2. every scenario, uncalibrated: card against host, and the records
+    #    of the golden archs against the reference's own
+    golden = {}
+    for rec in _jsonl(GOLDEN_RUNNER):
+        golden.setdefault(rec.pop("scenario"), []).append(rec)
+    for scenario in runner["scenarios"]:
+        recs = {}
+        for k, dev in where.items():
+            d = workdir / f"{scenario}-{k}"
+            _, _, err, dt = _cli(runner_argv(scenario, runner) + [
+                "--out", d, "--device", dev])
+            n_points = _sweep_counts(err)[0]
+            print(f"  {scenario} on {torch.device(dev).type}: {n_points} "
+                  f"points in {dt:.3f}s = {n_points / dt:.1f} points/s"
+                  + (f"  [{card}]" if k == "card" else ""))
+            recs[k] = [{f: v for f, v in r.items() if f != "chunk"}
+                       for r in _jsonl(d / "results.jsonl")]
+        _held_records(recs["card"], recs["host"],
+                      f"{scenario}: card against host")
+        want = golden[scenario]
+        by_key = {r["key"]: r for r in recs["card"]}
+        _held_records([by_key[r["key"]] for r in want], want,
+                      f"{scenario}: card against the reference's golden")
+        print(f"  {scenario}: {len(recs['card'])} records held to the "
+              f"host's, {len(want)} to {GOLDEN_RUNNER.name}")
+
+    # 3. fleet sizing over the card-written directory and the host's
+    # (exit 1: no design meets the walls); the same exit code and plan
+    outs = {k: _cli(["size", "--from", dirs[k], *runner["size"]],
+                    ok=(0, 1))[:2] for k in where}
+    rc, text = outs["card"]
+    assert rc == outs["host"][0], (rc, outs["host"][0])
+    exact = _printed_close(text, outs["host"][1])
+    print(f"  pathfind size --from DIR {' '.join(runner['size'])}: exit "
+          f"{rc}, {max(len(text.splitlines()) - 1, 0)} fleet plans; the "
+          f"card's directory prints the host's text"
+          + ("" if exact else " within the last printed digit"))
+
+
 def _consistency(model, params, device, check_len: int) -> None:
     """Forward ``check_len - 1`` tokens into a cache, step the last one, and
     hold its logits to the last position of a ``check_len``-token forward
@@ -1269,7 +1474,8 @@ def _check_launches(mods: dict, expected: dict, device, what: str) -> dict:
 
 def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
         check_len: int, recurrent: dict, steps: int = 80,
-        starts: int = 6, search: dict = SEARCH) -> list:
+        starts: int = 6, search: dict = SEARCH,
+        runner: dict = RUNNER) -> list:
     """Phases 2-6; returns the per-kernel result objects.  ``cases`` maps
     each kernel to its (compared, timed) cases."""
     from repro_torch.configs.base import get_config, reduced
@@ -1288,6 +1494,8 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
           f"the rest fit, reports and validate)")
     phase_predict(device, out.profile_path)
     phase_search(device, search)
+    phase_runner(device, runner, workdir.parent / f"{workdir.name}-runner",
+                 out.profile_path)
     t3 = time.perf_counter()
     print(f"# phase 4: {t3 - t2:.2f}s")
     serve_launches = phase_serve(device, serve_kw, check_len)

@@ -14,7 +14,7 @@ numeric leaves, so:
     repeated points free;
   * `BatchedEvaluator.evaluate_matrix` scores an ``(N, HW_DIM)`` matrix
     without per-point MicroArch objects;
-  * `evaluate` is the facade (points mode and matrix mode); `sweep`
+  * `evaluate` is the facade (points, label and matrix modes); `sweep`
     cross-products arches x shape cells x mesh shapes x techlib nodes and
     returns every point, with `pareto_front` and `hypervolume` over them.
 
@@ -35,16 +35,14 @@ than the model, and where each goes (ROADMAP queue 1):
     (parallelism).  One card is one device; asking for more raises;
   * ``evaluate_budgets`` (the SOE's budget-space batch): item 8;
   * the device-resident streaming frontier (``frontier_*``): item 11;
-  * label mode of `evaluate` (sweep labels through their scenario): item
-    6, with the sweep runner.  It raises;
   * `sweep`'s ``profile`` (calibrated efficiencies on every point): item 7,
     with its first caller; its ``strategies_fn`` hook, which nothing sets;
   * `PredictionCache`'s one-key ``get`` / ``put``: the evaluator looks up
     and inserts a batch at a time (``get_many`` / ``put_many``).
 
 Kept without a caller in this package yet, so that code written against
-the reference's public names runs on either: `hw_ctx` (the hardware keys
-that the objectives fold over, item 5) and the deprecated
+the reference's public names runs on either: `hw_ctx` (the live hardware
+ctx of the traced objective folds, items 8 and 11) and the deprecated
 `evaluate_points` alias of `evaluate`.
 """
 
@@ -513,7 +511,7 @@ def evaluate(points: Optional[Sequence[EvalPoint]] = None, *,
              cache: Optional[PredictionCache] = DEFAULT_CACHE,
              min_batch_jit: int = 4,
              shard_devices: bool = False,
-             devices: Optional[int] = None) -> np.ndarray:
+             devices: Optional[int] = None, device=None):
     """Score candidates — THE eval entry point, in one of its modes.
 
     Exactly one mode per call (mixing raises ``ValueError``):
@@ -525,8 +523,12 @@ def evaluate(points: Optional[Sequence[EvalPoint]] = None, *,
     * **matrix mode** — ``evaluate(template=MicroArch, matrix=(N,
       HW_DIM), graph=..., strategy=...)``: the matrix-native path on the
       template's device.
-    * **label mode** — ``evaluate(spec=SweepSpec, labels=[...])`` comes
-      with the sweep runner and raises ``NotImplementedError``.
+    * **label mode** — ``evaluate(spec=SweepSpec, labels=[PointLabel,
+      ...])``: resolves sweep labels through their scenario on ``device``
+      (the card unless the caller asks for ``"cpu"``; PPE/profile come
+      from the spec, not the ``ppe`` argument) and returns the scenario's
+      *result records* (list of dicts), exactly what
+      `sweeprunner.SweepRunner` commits per chunk.
     """
     n_modes = sum((points is not None,
                    spec is not None or labels is not None,
@@ -535,6 +537,10 @@ def evaluate(points: Optional[Sequence[EvalPoint]] = None, *,
         raise ValueError(
             "evaluate() takes exactly one of: points=..., "
             "(spec=..., labels=...), or (template=..., matrix=...)")
+    if device is not None and (points is not None or matrix is not None
+                               or template is not None):
+        raise ValueError("device= is label mode's; points and matrix "
+                         "modes run on their hardware points' device")
     if points is not None:
         return _evaluate_points_impl(points, ppe=ppe, cache=cache,
                                      min_batch_jit=min_batch_jit,
@@ -548,10 +554,12 @@ def evaluate(points: Optional[Sequence[EvalPoint]] = None, *,
                               pod_bw=pod_bw, cache=cache,
                               device=template.device)
         return ev.evaluate_matrix(template, matrix, devices=devices)
-    raise NotImplementedError(
-        "evaluate(spec=, labels=): label mode scores sweep labels through "
-        "their scenario and comes with the sweep runner (ROADMAP queue 1 "
-        "item 6)")
+    if spec is None or labels is None:
+        raise ValueError("label mode needs both spec= and labels=")
+    from repro_torch.core import sweeprunner   # lazy: it imports us
+    return sweeprunner._eval_labels_impl(spec, labels, cache=cache,
+                                         shard_devices=shard_devices,
+                                         device=device)
 
 
 def evaluate_points(points: Sequence[EvalPoint],

@@ -13,10 +13,38 @@ and a missing card is an error, never a silent fall-back to the host):
                   --mesh 8x8 --mesh 16x16 \\
                   --logic N7,N5,N3 --hbm HBM2E,HBM3 --csv sweep.csv
 
-          This is the reference's in-memory sweep.  The flags of the
-          reference's chunked, resumable runner (--out, --resume,
-          --scenario, --scale, --profile, --arch all, ...) are not flags
-          here and exit 2: the runner comes later (ROADMAP queue 1 item 6).
+          With --out DIR (or any other flag of the chunked engine:
+          --resume, --scenario, --scale, --slo, --scenario-param,
+          --objectives, --profile, --chunk-size, --max-chunks,
+          --backend, --arch all) the sweep runs on the chunked,
+          resumable runner (repro_torch.core.sweeprunner): results
+          stream to DIR/results.jsonl, finished chunks are checkpointed,
+          and an interrupted sweep continues with ZERO re-evaluation:
+
+              PYTHONPATH=src python -m repro_torch.pathfind sweep \\
+                  --scenario serving-traffic --arch all --mesh 8x8 \\
+                  --logic N7,N5 --scenario-param qps=2,8 \\
+                  --objectives energy,cost,goodput --out sweeps/traffic
+              PYTHONPATH=src python -m repro_torch.pathfind sweep \\
+                  --out sweeps/traffic --resume
+
+          The directory is the reference's: the same spec fingerprint,
+          chunk hashes and checkpoint protocol, so either package resumes
+          a sweep the other started.  --scenario picks the workload
+          (repro_torch.core.scenarios): train, serving, serving-long,
+          serving-traffic.  The reference's flags whose machinery is not
+          ported yet exit 2 naming their ROADMAP queue 1 item: --workers,
+          --lease-ttl, --frontier-only, --frontier-cap, --superbatch,
+          --compile-ahead, --no-bucketing, --no-compile-cache and the
+          backends other than serial / auto (item 11; device: item 9).
+
+  size    inverse fleet sizing over a swept serving-traffic design space:
+          the minimum device count serving --qps under percentile SLO
+          walls, on the closed-form traffic model — swept points are never
+          re-evaluated (--from DIR needs no device):
+
+              PYTHONPATH=src python -m repro_torch.pathfind size \\
+                  --from sweeps/traffic --qps 24 --slo-ttft-p99 2.0
 
   plan    the CrossFlow -> runtime bridge: best runtime-realizable strategy
           for one (arch, cell, mesh) on the TPU-v5e micro-arch:
@@ -43,8 +71,9 @@ and a missing card is an error, never a silent fall-back to the host):
 
 Every file written here is in the reference's format, so the reference's
 ``python -m repro.pathfind sweep --profile DIR/profile.json`` consumes a
-profile fitted on the card.  The other subcommands (soe, cooptimize,
-explore, size, sweep-worker) come with later slices of the port.
+profile fitted on the card.  The reference's other subcommands exit 2
+naming the ROADMAP queue 1 item that ports them: soe and cooptimize (item
+8), explore and sweep-worker (item 11).
 """
 
 from __future__ import annotations
@@ -71,32 +100,117 @@ def _csv_list(text: str) -> List[str]:
     return [x.strip() for x in text.split(",") if x.strip()]
 
 
-def _add_sweep_flags(sw) -> None:
-    sw.add_argument("--arch", action="append", default=None,
-                    help="model arch id (repeatable)")
-    sw.add_argument("--cell", action="append", default=None,
-                    help="shape cell name (repeatable; default train_4k)")
-    sw.add_argument("--mesh", action="append", type=_mesh, default=None,
-                    help="mesh shape like 16x16 (repeatable)")
-    sw.add_argument("--logic", type=_csv_list, default=["N7"],
-                    help="comma-separated logic nodes (default N7)")
-    sw.add_argument("--hbm", type=_csv_list, default=["HBM2E"],
-                    help="comma-separated HBM generations")
-    sw.add_argument("--net", type=_csv_list, default=["IB-NDR-X8"],
-                    help="comma-separated inter-node networks")
-    sw.add_argument("--area", type=float, default=None,
-                    help="proc chip area budget (mm^2)")
-    sw.add_argument("--power", type=float, default=None,
-                    help="node power budget (W)")
-    sw.add_argument("--tilings", type=int, default=8,
-                    help="PPE tiling samples per level")
-    sw.add_argument("--pareto", type=_csv_list, default=None, metavar="OBJS",
-                    help="print only the Pareto frontier over these "
-                         "objectives (e.g. time_s,devices)")
-    sw.add_argument("--csv", default=None, help="also write CSV here")
-    sw.add_argument("--device", default="cuda",
-                    help="where the evaluation runs (default cuda; cpu "
-                         "only when asked)")
+def _scenario_param(text: str) -> Tuple[str, object]:
+    """KEY=V or KEY=V1,V2,... (a comma list declares a sweep axis)."""
+    key, sep, val = text.partition("=")
+    vals = [v for v in val.split(",") if v]
+    if not sep or not key or not vals:
+        raise argparse.ArgumentTypeError(
+            f"bad scenario param {text!r}; expected KEY=V or KEY=V1,V2,...")
+    try:
+        out = [float(v) for v in vals]
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"bad scenario param {text!r}: values must be numbers")
+    return key.strip(), out[0] if len(out) == 1 else out
+
+
+def _scenario_params_dict(pairs) -> dict:
+    return dict(pairs or ())
+
+
+def _add_device_flag(p, what: str) -> None:
+    p.add_argument("--device", default="cuda",
+                   help=f"where {what} runs (default cuda; cpu only when "
+                        f"asked)")
+
+
+# -- shared flag groups (sweep / size) ---------------------------------------
+# one scenario/profile/out-dir vocabulary across subcommands: a flag means
+# the same thing everywhere, and commands that read their spec from a
+# directory refuse contradicting flags instead of silently ignoring them
+
+
+def _add_axis_flags(p) -> None:
+    g = p.add_argument_group("design-space axes")
+    g.add_argument("--arch", action="append", default=None,
+                   help="model arch id (repeatable; 'all' = every config)")
+    g.add_argument("--cell", action="append", default=None,
+                   help="shape cell name (repeatable; default from the "
+                        "scenario, e.g. train_4k / prefill_32k+decode_32k)")
+    g.add_argument("--mesh", action="append", type=_mesh, default=None,
+                   help="mesh shape like 16x16 (repeatable)")
+    g.add_argument("--logic", type=_csv_list, default=["N7"],
+                   help="comma-separated logic nodes (default N7)")
+    g.add_argument("--hbm", type=_csv_list, default=["HBM2E"],
+                   help="comma-separated HBM generations")
+    g.add_argument("--net", type=_csv_list, default=["IB-NDR-X8"],
+                   help="comma-separated inter-node networks")
+    g.add_argument("--area", type=float, default=None,
+                   help="proc chip area budget (mm^2)")
+    g.add_argument("--power", type=float, default=None,
+                   help="node power budget (W)")
+    g.add_argument("--scale", type=_csv_list, default=None,
+                   metavar="S1,S2,...",
+                   help="budget-scale variants (e.g. 0.8,1.0,1.2) "
+                        "multiplying area+power per hardware point")
+    g.add_argument("--tilings", type=int, default=8,
+                   help="PPE tiling samples per level")
+
+
+def _add_scenario_flags(p, default_scenario: str = "train") -> None:
+    g = p.add_argument_group("scenario")
+    g.add_argument("--scenario", default=default_scenario,
+                   help="workload scenario: train | serving | serving-long "
+                        "| serving-traffic (continuous batching + "
+                        "percentile SLO walls)")
+    g.add_argument("--slo", type=float, default=None,
+                   help="serving TTFT SLO in seconds (tags slo_ok; for "
+                        "serving-traffic this is the p99 TTFT wall)")
+    g.add_argument("--scenario-param", action="append",
+                   type=_scenario_param, default=None,
+                   metavar="KEY=V[,V2,...]",
+                   help="typed scenario parameter (repeatable); for "
+                        "serving-traffic: qps, prompt_mean, prompt_cv, "
+                        "output_mean, output_cv, prefill_chunk, "
+                        "slo_ttft_p50/p99, slo_tpot_p50/p99.  A comma "
+                        "list declares a sweep axis (variants ride in "
+                        "the cell id)")
+    g.add_argument("--objectives", type=_csv_list, default=None,
+                   metavar="OBJ1,OBJ2,...",
+                   help="Pareto objectives from the objective registry "
+                        "(core/objectives.py): 'energy', 'cost', "
+                        "'goodput' (kind-matched aliases), canonical "
+                        "names like energy_j_per_token, or the "
+                        "scenario's own record fields.  Replaces the "
+                        "scenario's default objective set")
+    g.add_argument("--profile", default=None, metavar="FILE",
+                   help="calibration profile JSON (pathfind calibrate); "
+                        "every hardware point is evaluated on the "
+                        "measurement-anchored MicroArch")
+
+
+# flags of the reference's `sweep` whose machinery is not ported yet: each
+# exits 2 naming its ROADMAP queue 1 item (dest, flag, what, item)
+LATER_SWEEP_FLAGS = (
+    ("workers", "--workers", "parallel chunk workers (the distributed "
+     "sweep fabric and the thread / process pools)", 11),
+    ("lease_ttl", "--lease-ttl", "the sweep fabric's chunk leases", 11),
+    ("frontier_only", "--frontier-only", "the device-resident streaming "
+     "Pareto frontier", 11),
+    ("frontier_cap", "--frontier-cap", "the device-resident streaming "
+     "Pareto frontier", 11),
+    ("superbatch", "--superbatch", "the pipelined executor", 11),
+    ("compile_ahead", "--compile-ahead", "the pipelined executor's "
+     "compile-ahead service", 11),
+    ("no_bucketing", "--no-bucketing", "cross-design bucketing (nothing "
+     "is bucketed here: the records are the reference's with it off)", 11),
+    ("no_compile_cache", "--no-compile-cache", "the persistent compile "
+     "cache (nothing is compiled here)", 11),
+)
+# subcommands of the reference CLI that later slices port
+LATER_COMMANDS = {"soe": 8, "cooptimize": 8, "explore": 11,
+                  "sweep-worker": 11}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -106,14 +220,93 @@ def _parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sw = sub.add_parser("sweep", help="batched design-space sweep")
-    _add_sweep_flags(sw)
+    _add_axis_flags(sw)
+    _add_scenario_flags(sw)
+    sw.add_argument("--pareto", type=_csv_list, default=None, metavar="OBJS",
+                    help="print only the Pareto frontier over these "
+                         "objectives (default: the scenario's, e.g. "
+                         "time_s,devices)")
+    sw.add_argument("--csv", default=None, help="also write CSV here")
+    # chunked resumable engine (repro_torch.core.sweeprunner)
+    sw.add_argument("--out", default=None,
+                    help="stream results + checkpoints into this directory "
+                         "(enables --resume)")
+    sw.add_argument("--resume", action="store_true",
+                    help="continue an interrupted sweep from --out "
+                         "(spec loaded from DIR/spec.json; zero "
+                         "re-evaluation of finished chunks)")
+    sw.add_argument("--chunk-size", type=int, default=32,
+                    help="design points per chunk (checkpoint granularity)")
+    sw.add_argument("--backend", default="auto",
+                    choices=["auto", "pipeline", "serial", "thread",
+                             "process", "device"],
+                    help="chunk fan-out: auto = serial, the one backend "
+                         "ported so far (the others exit 2)")
+    sw.add_argument("--max-chunks", type=int, default=None,
+                    help="stop after N chunks (testing/benchmarks; "
+                         "combine with --resume to continue)")
+    sw.add_argument("--workers", type=int, default=None,
+                    help="not ported yet (exits 2)")
+    sw.add_argument("--lease-ttl", type=float, default=None,
+                    help="not ported yet (exits 2)")
+    sw.add_argument("--superbatch", type=int, default=None,
+                    help="not ported yet (exits 2)")
+    sw.add_argument("--frontier-only", action="store_true",
+                    help="not ported yet (exits 2)")
+    sw.add_argument("--frontier-cap", type=int, default=None,
+                    help="not ported yet (exits 2)")
+    sw.add_argument("--no-compile-cache", action="store_true",
+                    help="not ported yet (exits 2)")
+    sw.add_argument("--compile-ahead", type=int, default=None, metavar="N",
+                    help="not ported yet (exits 2)")
+    sw.add_argument("--no-bucketing", action="store_true",
+                    help="not ported yet (exits 2)")
+    _add_device_flag(sw, "the evaluation")
 
     pl = sub.add_parser("plan", help="runtime sharding plan for one point")
     pl.add_argument("--arch", required=True)
     pl.add_argument("--cell", required=True)
     pl.add_argument("--mesh", type=_mesh, required=True)
-    pl.add_argument("--device", default="cuda",
-                    help="where the prediction runs (default cuda)")
+    _add_device_flag(pl, "the prediction")
+
+    sz = sub.add_parser("size",
+                        help="inverse fleet sizing: minimum device count "
+                             "serving --qps under percentile SLO walls")
+    sz.add_argument("--from", dest="from_dir", default=None, metavar="DIR",
+                    help="checkpointed serving-traffic sweep directory; "
+                         "swept points are read, never re-scored.  "
+                         "Without --from, the design-space axes below "
+                         "run a fresh sweep first")
+    _add_axis_flags(sz)
+    _add_scenario_flags(sz, default_scenario="serving-traffic")
+    sz.add_argument("--qps", type=float, required=True,
+                    help="offered load (requests/s) to serve")
+    sz.add_argument("--slo-ttft-p50", type=float, default=None,
+                    help="median TTFT wall in seconds")
+    sz.add_argument("--slo-ttft-p99", type=float, default=None,
+                    help="p99 TTFT wall in seconds")
+    sz.add_argument("--slo-tpot-p50", type=float, default=None,
+                    help="median TPOT wall in seconds")
+    sz.add_argument("--slo-tpot-p99", type=float, default=None,
+                    help="p99 TPOT wall in seconds")
+    sz.add_argument("--top-k", type=int, default=5,
+                    help="feasible designs to report (default 5)")
+    sz.add_argument("--rank-by", default="devices",
+                    choices=["devices", "cost_per_token",
+                             "energy_per_token"],
+                    help="fleet-plan ranking: devices (default) or an "
+                         "objective column already in the swept records "
+                         "($/token, J/token) — zero re-evaluation")
+    sz.add_argument("--out", default=None,
+                    help="stream the fresh sweep's results + checkpoints "
+                         "into this directory (axes mode only)")
+    sz.add_argument("--chunk-size", type=int, default=32,
+                    help="design points per chunk (axes mode)")
+    sz.add_argument("--backend", default="auto",
+                    choices=["auto", "pipeline", "serial", "thread",
+                             "process", "device"],
+                    help="sweep backend (axes mode; auto = serial)")
+    _add_device_flag(sz, "the fresh sweep (axes mode)")
 
     ca = sub.add_parser("calibrate",
                         help="measure the card and fit a calibration "
@@ -165,6 +358,10 @@ def _parser() -> argparse.ArgumentParser:
                          "like with like)")
     va.add_argument("--device", default="cuda",
                     help="where the prediction runs (default cuda)")
+
+    for cmd, item in LATER_COMMANDS.items():
+        sub.add_parser(cmd, help=f"not ported yet (ROADMAP queue 1 item "
+                                 f"{item}; exits 2)", add_help=False)
     return p
 
 
@@ -295,22 +492,42 @@ def _cmd_validate(args) -> int:
     return 0
 
 
+def _later_flag(args) -> Optional[str]:
+    """The ``error:`` text for the first flag of a later item, or None."""
+    for dest, flag, what, item in LATER_SWEEP_FLAGS:
+        val = getattr(args, dest, None)
+        if val is not None and val is not False:
+            return (f"{flag}: {what} is not ported yet (ROADMAP queue 1 "
+                    f"item {item})")
+    return None
+
+
 def _cmd_sweep(args) -> int:
-    """The reference's in-memory sweep (``repro/pathfind.py:_cmd_sweep``)."""
+    """``pathfind sweep``: the in-memory sweep, or the chunked runner when
+    any of its flags is given (the reference's routing)."""
+    later = _later_flag(args)
+    if later:
+        print(f"error: {later}", file=sys.stderr)
+        return 2
+    # every flag the chunked engine owns must route there — a runner-only
+    # flag silently dropped by the in-memory path is a footgun
+    use_runner = bool(args.out or args.resume or args.scenario != "train"
+                      or args.scale or args.max_chunks is not None
+                      or args.backend != "auto" or args.slo is not None
+                      or args.chunk_size != 32
+                      or args.profile is not None
+                      or args.scenario_param or args.objectives
+                      or (args.arch and "all" in args.arch))
+    if use_runner:
+        return _cmd_sweep_runner(args)
+
     from repro_torch.core import pathfinder
     from repro_torch.core.age import Budgets
     from repro_torch.core.roofline import PPEConfig
 
-    runner = args.extra + (["--arch all"] if args.arch and "all" in args.arch
-                           else [])
-    if runner:
-        print(f"error: {' '.join(runner)}: not taken by the in-memory "
-              f"sweep; the chunked sweep runner (--out, --resume, "
-              f"--scenario, --profile, --arch all, ...) is not ported yet "
-              f"(ROADMAP queue 1 item 6)", file=sys.stderr)
-        return 2
     if not (args.arch and args.mesh):
-        print("error: sweep needs --arch and --mesh", file=sys.stderr)
+        print("error: sweep needs --arch and --mesh (or --resume with "
+              "--out)", file=sys.stderr)
         return 2
     cells = args.cell or ["train_4k"]
     budgets = Budgets.default()
@@ -339,6 +556,219 @@ def _cmd_sweep(args) -> int:
     return 0
 
 
+def _spec_from_args(args):
+    """The `sweeprunner.SweepSpec` of a command line's axes and scenario
+    flags (``sweep`` and ``size``)."""
+    from repro_torch.core import sweeprunner
+    profile_dict = None
+    if args.profile is not None:
+        from repro_torch.calibrate import profiles as profiles_lib
+        profile_dict = profiles_lib.load_profile(args.profile).to_dict()
+    return sweeprunner.SweepSpec(
+        arches=tuple(args.arch),
+        mesh_shapes=tuple(tuple(m) for m in args.mesh),
+        scenario=args.scenario, cells=tuple(args.cell or ()),
+        logic_nodes=tuple(args.logic), hbms=tuple(args.hbm),
+        nets=tuple(args.net),
+        budget_scales=tuple(float(s) for s in args.scale) if args.scale
+        else (1.0,),
+        area_mm2=args.area, power_w=args.power, slo_s=args.slo,
+        n_tilings=args.tilings, chunk_size=args.chunk_size,
+        profile=profile_dict,
+        scenario_params=_scenario_params_dict(args.scenario_param) or None,
+        objectives=tuple(args.objectives) if args.objectives else None)
+
+
+def _spec_flags_given(args, defaults: Dict[str, object]) -> List[str]:
+    """The axis / scenario flags set away from their defaults: a command
+    that loads its spec from a directory refuses them."""
+    return [name for name, dest in (
+        ("--arch", "arch"), ("--cell", "cell"), ("--mesh", "mesh"),
+        ("--logic", "logic"), ("--hbm", "hbm"), ("--net", "net"),
+        ("--scale", "scale"), ("--area", "area"), ("--power", "power"),
+        ("--slo", "slo"), ("--scenario", "scenario"),
+        ("--chunk-size", "chunk_size"), ("--tilings", "tilings"),
+        ("--profile", "profile"), ("--scenario-param", "scenario_param"),
+        ("--objectives", "objectives"), ("--out", "out"))
+        if dest in defaults and getattr(args, dest) != defaults[dest]]
+
+
+_AXIS_DEFAULTS = {"arch": None, "cell": None, "mesh": None,
+                  "logic": ["N7"], "hbm": ["HBM2E"], "net": ["IB-NDR-X8"],
+                  "scale": None, "area": None, "power": None, "slo": None,
+                  "tilings": 8, "profile": None, "scenario_param": None,
+                  "objectives": None}
+
+
+def _cmd_sweep_runner(args) -> int:
+    """Chunked / resumable path (repro_torch.core.sweeprunner)."""
+    from repro_torch.core import sweeprunner
+
+    kwargs = dict(backend=args.backend, device=args.device)
+    if args.resume:
+        if not args.out:
+            print("error: --resume requires --out DIR", file=sys.stderr)
+            return 2
+        # the spec comes from DIR/spec.json; axis/scenario flags on the
+        # command line would be silently contradicted, so refuse them
+        ignored = _spec_flags_given(args, dict(
+            _AXIS_DEFAULTS, scenario="train", chunk_size=32))
+        if ignored:
+            print(f"error: --resume loads the sweep spec from "
+                  f"{args.out}/spec.json; drop these flags (they would "
+                  f"be ignored): {', '.join(ignored)}", file=sys.stderr)
+            return 2
+        runner = sweeprunner.SweepRunner.from_dir(args.out, **kwargs)
+    else:
+        if not (args.arch and args.mesh):
+            print("error: sweep needs --arch and --mesh (or --resume with "
+                  "--out)", file=sys.stderr)
+            return 2
+        spec = _spec_from_args(args)
+        if spec.profile is not None:
+            print(f"# profile: {args.profile} "
+                  f"(tech={spec.profile.get('tech')})", file=sys.stderr)
+        runner = sweeprunner.SweepRunner(spec, out_dir=args.out, **kwargs)
+
+    stats = runner.run(resume=args.resume, max_chunks=args.max_chunks)
+    # any variant resolves the same fields/objectives for CSV + frontier
+    scn = runner.spec.scenario_spec.variants()[0].resolve()
+    records = stats.records or []
+    shown = records
+    objectives = args.pareto or list(scn.objectives)
+    if args.pareto:
+        shown = sweeprunner.pareto_records(records, objectives)
+    csv_text = sweeprunner.to_csv(shown, scn)
+    print(csv_text)
+    if args.csv:
+        with open(args.csv, "w") as fh:
+            fh.write(csv_text + "\n")
+        print(f"# wrote {len(shown)} points to {args.csv}", file=sys.stderr)
+    print(f"# sweep[{scn.name}] backend={stats.backend}: "
+          f"{stats.n_points_total} points in {stats.n_chunks_total} chunks; "
+          f"skipped {stats.n_chunks_skipped} checkpointed, evaluated "
+          f"{stats.n_chunks_evaluated} "
+          f"({stats.n_points_evaluated} points) in {stats.elapsed_s:.1f}s",
+          file=sys.stderr)
+    print(f"# cache: prediction {stats.cache_hits} hits / "
+          f"{stats.cache_misses} misses", file=sys.stderr)
+    if not stats.complete:
+        if stats.out_dir:
+            device = "" if runner.device.type == "cuda" \
+                else f" --device {runner.device.type}"
+            print(f"# incomplete: resume with `python -m "
+                  f"repro_torch.pathfind sweep --out {stats.out_dir} "
+                  f"--resume{device}`", file=sys.stderr)
+        else:
+            print("# incomplete (no --out directory: nothing was "
+                  "checkpointed)", file=sys.stderr)
+    feasible = [r for r in records
+                if r.get("feasible", True)
+                and r.get(objectives[0]) is not None
+                and float(r[objectives[0]]) > 0.0]
+    if feasible:
+        best = min(feasible, key=lambda r: float(r[objectives[0]]))
+        print(f"# best[{objectives[0]}]: {best['key']} -> "
+              f"{float(best[objectives[0]]):.4g}", file=sys.stderr)
+    return 0
+
+
+def _cmd_size(args) -> int:
+    """Inverse fleet-sizing query (repro_torch.core.traffic.size_fleet)."""
+    import json
+
+    from repro_torch.core import objectives as objectives_lib
+    from repro_torch.core import sweeprunner, traffic
+
+    if args.from_dir:
+        # the swept records are authoritative: refuse contradicting flags
+        # exactly as `sweep --resume` does
+        ignored = _spec_flags_given(args, dict(
+            _AXIS_DEFAULTS, scenario="serving-traffic", out=None))
+        if ignored:
+            print(f"error: --from loads the sweep spec from "
+                  f"{args.from_dir}/spec.json; drop these flags (they "
+                  f"would be ignored): {', '.join(ignored)}",
+                  file=sys.stderr)
+            return 2
+        spec, records = sweeprunner.load_sweep(args.from_dir)
+        if not records:
+            # frontier-only sweep: size over the materialized frontier
+            fp = os.path.join(args.from_dir, "frontier.jsonl")
+            if os.path.exists(fp):
+                with open(fp) as fh:
+                    records = [json.loads(ln) for ln in fh if ln.strip()]
+    else:
+        if not (args.arch and args.mesh):
+            print("error: size needs --arch and --mesh (or --from DIR)",
+                  file=sys.stderr)
+            return 2
+        spec = _spec_from_args(args)
+        runner = sweeprunner.SweepRunner(spec, out_dir=args.out,
+                                         backend=args.backend,
+                                         device=args.device)
+        records = runner.run().records
+    if spec.scenario != "serving-traffic":
+        print(f"error: fleet sizing needs the serving-traffic scenario "
+              f"(the sweep used {spec.scenario!r})", file=sys.stderr)
+        return 2
+    # model defaults = the spec's single-valued params; swept
+    # (multi-valued) params override per record via the cell-id suffix
+    base = dict(traffic.PARAM_DEFAULTS)
+    base.update({k: v for k, v in spec.scenario_spec.params
+                 if not isinstance(v, tuple)})
+    if spec.slo_s is not None:
+        base["slo_ttft_p99"] = spec.slo_s
+    # objective-model params (energy price, MTBF, ...) are not traffic
+    # params; split them out before the strict traffic parser
+    _, base = objectives_lib.split_objective_params(base)
+    tm, pol, spec_slo = traffic.split_params(base)
+    slo = {name: float(v) for name in
+           ("ttft_p50", "ttft_p99", "tpot_p50", "tpot_p99")
+           if (v := getattr(args, "slo_" + name)) is not None}
+    if not slo:         # fall back to the walls the sweep itself carried
+        slo = {k[len("slo_"):]: float(v) for k, v in spec_slo.items()
+               if v is not None}
+    if not slo:
+        print("error: size needs at least one SLO wall (--slo-ttft-p99 "
+              "0.5, --slo-tpot-p50 0.05, ...)", file=sys.stderr)
+        return 2
+    plan = traffic.size_fleet(records, args.qps, slo=slo, traffic=tm,
+                              policy=pol, top_k=args.top_k,
+                              rank_by=args.rank_by)
+    walls = " ".join(f"{k}<={v:g}s" for k, v in sorted(slo.items()))
+    print(f"# size: {plan.n_records} serving-traffic records, "
+          f"{plan.n_sized} sizeable under {walls} at {plan.qps:g} qps "
+          f"({plan.n_unsizeable} unsizeable; {plan.n_evals} closed-form "
+          f"evals, zero sweep re-evaluations)", file=sys.stderr)
+    if plan.best is None:
+        print("# no swept design meets the SLO walls at any replica "
+              "count", file=sys.stderr)
+        return 1
+    rank_col = traffic.RANK_COLUMNS[args.rank_by]
+    header = ("devices,replicas,devices_per_replica,per_replica_qps,"
+              "ttft_p99_s,tpot_p50_s,util,key")
+    if rank_col is not None:       # default devices output stays identical
+        header += f",{rank_col}"
+    print(header)
+    for c in plan.candidates:
+        m = c.metrics
+        row = (f"{c.devices},{c.replicas},{c.devices_per_replica},"
+               f"{c.per_replica_qps:.4g},{m['ttft_p99_s']:.4g},"
+               f"{m['tpot_p50_s']:.4g},{m['util']:.3f},{c.key}")
+        if rank_col is not None:
+            row += f",{c.rank_value:.6g}" if c.rank_value is not None \
+                else ","
+        print(row)
+    b = plan.best
+    print(f"# best: {b.devices} devices = {b.replicas} replicas x "
+          f"{b.devices_per_replica} ({b.key}) -> ttft_p99 "
+          f"{b.metrics['ttft_p99_s']:.4g}s, tpot_p50 "
+          f"{b.metrics['tpot_p50_s']:.4g}s at {b.per_replica_qps:.4g} "
+          f"qps/replica", file=sys.stderr)
+    return 0
+
+
 def _cmd_plan(args) -> int:
     from repro_torch.configs.base import SHAPE_CELLS, get_config
     from repro_torch.core import planner
@@ -359,14 +789,18 @@ def _cmd_plan(args) -> int:
 
 def main(argv=None) -> int:
     parser = _parser()
-    # the reference's runner flags are left over here, for `_cmd_sweep`
-    # to refuse by name
+    # a subcommand of a later slice takes the reference's flags, which are
+    # not declared here: its arguments are left over, and it is refused by
+    # name below
     args, extra = parser.parse_known_args(argv)
-    args.extra = extra
-    if args.extra and args.cmd != "sweep":
-        parser.error(f"unrecognized arguments: {' '.join(args.extra)}")
+    if args.cmd in LATER_COMMANDS:
+        print(f"error: pathfind {args.cmd} is not ported yet (ROADMAP "
+              f"queue 1 item {LATER_COMMANDS[args.cmd]})", file=sys.stderr)
+        return 2
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     try:
-        return {"sweep": _cmd_sweep, "plan": _cmd_plan,
+        return {"sweep": _cmd_sweep, "plan": _cmd_plan, "size": _cmd_size,
                 "calibrate": _cmd_calibrate,
                 "validate": _cmd_validate}[args.cmd](args)
     except ModuleNotFoundError as e:
@@ -374,10 +808,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
     except KeyError as e:
         print(f"error: unknown name: {e}", file=sys.stderr)
-    except (ValueError, AttributeError, OSError) as e:
+    except (ValueError, AttributeError, OSError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
     return 2
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -837,3 +837,36 @@ def test_card_matches_the_xlstm_golden_outputs(part):
     assert (port_mlstm.LAUNCHES > before) == (part != "slstm")
     with np.load(GOLDEN_XLSTM) as golden:
         hold_to_xlstm_golden(got, golden)
+
+
+GOLDEN_RUNNER = Path(__file__).with_name("test_torch_golden_runner.jsonl")
+
+
+@pytest.mark.cuda
+def test_card_runner_records_match_the_golden_records(tmp_path):
+    """``pathfind sweep --out DIR`` on the card over the golden file's grid
+    (chip_smoke.py's phase-4 (d) axes on its golden archs), every scenario:
+    labels, keys, flags and the non-finite pattern exactly the reference's
+    records in tests/test_torch_golden_runner.jsonl, numbers within
+    1e-4."""
+    import importlib.util
+    import json
+    _card()
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    golden = {}
+    for line in GOLDEN_RUNNER.read_text().splitlines():
+        rec = json.loads(line)
+        golden.setdefault(rec.pop("scenario"), []).append(rec)
+    runner = dict(cs.RUNNER, arches=cs.RUNNER["golden_arches"])
+    assert list(golden) == list(runner["scenarios"])
+    for scenario, want in golden.items():
+        d = tmp_path / scenario
+        cs._cli(cs.runner_argv(scenario, runner) + ["--out", d, "--device",
+                                                    "cuda"])
+        got = [{k: v for k, v in r.items() if k != "chunk"}
+               for r in cs._jsonl(d / "results.jsonl")]
+        assert cs._held_records(got, want, scenario) > 0
+

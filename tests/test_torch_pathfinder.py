@@ -17,7 +17,7 @@ import torch
 from repro.core import age as ref_age
 from repro.core import pathfinder as ref_pf
 from repro.core import techlib as ref_techlib
-from repro_torch.core import age, lmgraph, pathfinder, techlib
+from repro_torch.core import age, lmgraph, pathfinder, sweeprunner, techlib
 from repro_torch.core.parallelism import Strategy
 from repro_torch.core.roofline import PPEConfig
 
@@ -149,8 +149,12 @@ def test_what_is_not_ported_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="item 9"):
         ev.evaluate_matrix(archs[0], pathfinder.pack_hw_many(archs),
                            devices=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pathfinder.evaluate(spec=object(), labels=[])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        sweeprunner.pick_backend("pipeline")
+    with pytest.raises(ValueError, match="label mode needs both"):
+        pathfinder.evaluate(spec=object())
+    with pytest.raises(ValueError, match="label mode's"):
+        pathfinder.evaluate(points=[], device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
         pathfinder.evaluate()
     with pytest.raises(ValueError, match="matrix mode"):

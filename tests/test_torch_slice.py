@@ -179,9 +179,12 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
                   meshes=((8, 8), (16, 16)), logic=("N7", "N5", "N3"),
                   hbm=("HBM2E", "HBM3"), net=("IB-NDR-X8",), matrix_rows=256,
                   eager_rows=2)
+    # phase 4 (d)'s runner over the golden file's archs
+    runner = dict(cs.RUNNER, arches=cs.RUNNER["golden_arches"])
     rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
                   dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
-                  16, recurrent, steps=3, starts=2, search=search)
+                  16, recurrent, steps=3, starts=2, search=search,
+                  runner=runner)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
     assert "strategy       RC-1-16-d16-p1" in out
@@ -189,6 +192,12 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     assert "24 rows held to test_torch_golden_sweep.npz" in out
     assert "all 256 rows held to the host's" in out
     assert "eager rows on cpu: 2 in" in out
+    assert "then --resume: skipped 2, evaluated 2 (zero re-evaluated)" in out
+    for scenario, n in (("train", 16), ("serving", 16),
+                        ("serving-traffic", 32)):
+        assert f"  {scenario}: {n} records held to the host's, {n} to " \
+            "test_torch_golden_runner.jsonl" in out
+    assert "pathfind size --from DIR" in out
     assert "decode_step" in out and "plan RC-1-1-d1-p1" in out
     assert "phase 6: recurrentgemma-2b-smoke" in out
     assert "phase 6: xlstm-125m-smoke" in out
