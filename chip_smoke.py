@@ -7,7 +7,8 @@ drives the port's main paths on the card, through the functions a user
 calls: measure -> fit -> profile -> report -> validate
 (``python -m repro_torch.pathfind calibrate|validate``), a full-size
 CrossFlow prediction, the search layer and the chunked sweep runner
-(``pathfind plan|sweep|size``), serving full-width qwen1.5-0.5b
+(``pathfind plan|sweep|size``), DeepFlow's search (``pathfind
+soe|cooptimize``), serving full-width qwen1.5-0.5b
 (``python -m repro_torch.launch.serve``), and the recurrent families at
 full width (``Model.prefill`` and ``serve`` of recurrentgemma-2b and
 xlstm-125m):
@@ -80,7 +81,19 @@ xlstm-125m):
                held to the host's and, for two archs, to the
                reference's own in ``tests/test_torch_golden_runner.jsonl``
                (1e-4); fleet sizing over the card's directory printing
-               the host's text; points/s of every sweep on both;
+               the host's text; points/s of every sweep on both; (e)
+               DeepFlow's search: ``pathfind soe`` for qwen1.5-0.5b x
+               train_4k on 64 devices at the reference's defaults on
+               card and host (the same strategy and queries, the batched
+               path, the best time within TIME_RTOL, the reference's
+               printed lines from ``tests/test_torch_golden_soe.json``),
+               the reference's SOE and refine objectives, gradients and
+               a three-step descent from that file (SOE_TOLS), ``pathfind
+               cooptimize --from`` (d)'s card-written train and
+               calibrated serving-traffic directories on card and host
+               (the same counts, records within 1e-4), each command's
+               wall seconds and eq.-6 steps/s, and one profiled step of
+               each engine;
   5. serve     full-width qwen1.5-0.5b (24 layers, random weights from a
                seed): ``serve(batch=8, prompt_len=128, gen=32)``, then a
                2048-token prompt forwarded 2047 tokens into a cache and
@@ -251,6 +264,48 @@ RUNNER = dict(
     size=("--qps", "4", "--slo-ttft-p99", "30"),
     golden_arches=("qwen1_5_0_5b", "recurrentgemma_2b"))
 GOLDEN_RUNNER = ROOT / "tests" / "test_torch_golden_runner.jsonl"
+# phase 4 (e), DeepFlow: ``pathfind soe`` at the reference's defaults (20
+# steps, 4 starts, 8 tilings), whose printed lines the golden file holds;
+# ``pathfind cooptimize --from`` phase 4 (d)'s card-written train and
+# calibrated serving-traffic directories with these flags; the card's
+# best time against the host's (TIME_RTOL) and each refined record
+# against the host's (SEARCH_RTOL)
+DEEPFLOW = dict(
+    soe=("--arch", "qwen1.5-0.5b", "--cell", "train_4k", "--devices", "64"),
+    cooptimize=("--top-k", "2", "--candidates", "1", "--steps", "8",
+                "--starts", "4"),
+    dirs=("train", "traffic"))
+TIME_RTOL = 1e-4
+# the reference's objectives, gradients and first descent steps at fixed
+# points (tests/test_torch_golden_soe.py writes it), held on the card at
+# value rtol / gradient tolerance (of the gradient's norm) / iterate atol
+GOLDEN_SOE = ROOT / "tests" / "test_torch_golden_soe.json"
+SOE_TOLS = dict(value=1e-4, grad=1e-3, w=1e-4)
+# what the golden file holds: `soe.make_objective` on tests/test_core_soe.py's
+# GEMM and on phase 4 (e)'s soe point (its strategy), each at the template
+# and seeded starts; each scenario's refine objective, built in and with
+# composed objectives, on the first design of a one-design sweep, at the
+# seed operating point and a seeded start (norms: the design's record); a
+# three-step batched descent on the GEMM objective; and the printed lines
+# of ``pathfind soe`` at DEEPFLOW's flags and at a short run's
+_TECH = ["N7", "HBM2E", "IB-NDR-X8"]
+SOE_CASES = dict(
+    objective=[
+        dict(graph=["gemm", 4096, 4096, 4096], strategy="RC-2-2-d2-p1",
+             tech=_TECH, n_tilings=24, starts=3, seed=1),
+        dict(graph=["lm", "qwen1.5-0.5b", "train_4k"],
+             strategy="RC-4-1-d16-p1", tech=_TECH, n_tilings=8, starts=2,
+             seed=1)],
+    refine=[dict(arches=["qwen1.5-0.5b"], mesh_shapes=[[4, 4]],
+                 scenario=scenario, logic_nodes=["N7"], n_tilings=4,
+                 scenario_params=params, objectives=objectives, starts=2,
+                 seed=0)
+            for scenario, params in (("train", None), ("serving", None),
+                                     ("serving-traffic", {"qps": 0.1}))
+            for objectives in (None, ["energy", "cost", "goodput"])],
+    descent=dict(objective=0, steps=3, starts=3, seed=0),
+    soe_cli=[["soe", *DEEPFLOW["soe"]],
+             ["soe", *DEEPFLOW["soe"], "--steps", "3", "--starts", "2"]])
 SERVE = dict(batch=8, prompt_len=128, gen=32, use_reduced=False)
 CHECK_LEN = 2048        # phase 5's prefill-vs-decode consistency prompt
 RECURRENT = dict(archs=("recurrentgemma-2b", "xlstm-125m"), prefill=(2, 2048),
@@ -1068,20 +1123,26 @@ def _jsonl(path: Path) -> list:
 
 def _held_records(got: list, want: list, what: str) -> int:
     """``got`` records equal to ``want`` key by key: labels, flags and the
-    non-finite (None) pattern exactly, numbers within SEARCH_RTOL.
-    Returns the numbers compared."""
+    non-finite (None) pattern exactly, numbers within SEARCH_RTOL; the
+    numbers of a nested dict (a refined record's knobs and budget
+    fractions) within SEARCH_RTOL plus 1e-5, the unit of the budgets'
+    5-decimal rounding.  Returns the numbers compared."""
+    def held(g, v, key, atol=0.0):
+        if isinstance(v, dict):
+            assert isinstance(g, dict) and list(g) == list(v), (what, key)
+            return sum(held(g[k], x, (*key, k), 1e-5) for k, x in v.items())
+        if isinstance(v, float):
+            assert isinstance(g, float) and \
+                abs(g - v) <= SEARCH_RTOL * abs(v) + atol, (what, key, g, v)
+            return 1
+        assert g == v, (what, key, g, v)
+        return 0
+
     assert [r["key"] for r in got] == [r["key"] for r in want], what
     n = 0
     for g, w in zip(got, want):
         assert list(g) == list(w), (what, w["key"], list(g), list(w))
-        for k, v in w.items():
-            if isinstance(v, float):
-                assert isinstance(g[k], float) and \
-                    abs(g[k] - v) <= SEARCH_RTOL * abs(v), \
-                    (what, w["key"], k, g[k], v)
-                n += 1
-            else:
-                assert g[k] == v, (what, w["key"], k, g[k], v)
+        n += sum(held(g[k], v, (w["key"], k)) for k, v in w.items())
     return n
 
 
@@ -1194,6 +1255,243 @@ def phase_runner(device, runner: dict, workdir: Path,
           f"{rc}, {max(len(text.splitlines()) - 1, 0)} fleet plans; the "
           f"card's directory prints the host's text"
           + ("" if exact else " within the last printed digit"))
+
+
+class _Spy:
+    """Records every call of ``module.name`` (its arguments and result)
+    while in a ``with`` block; the function itself still runs."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+        setattr(self.module, self.name, spy)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def soe_objective(case: dict):
+    """The port's `soe.make_objective` of one golden case."""
+    from repro_torch.configs.base import SHAPE_CELLS, get_config
+    from repro_torch.core import lmgraph, soe, techlib
+    from repro_torch.core.age import Budgets
+    from repro_torch.core.parallelism import Strategy
+    from repro_torch.core.roofline import PPEConfig
+    kind, *args = case["graph"]
+    graph = lmgraph.gemm_graph(*args) if kind == "gemm" else \
+        lmgraph.build_graph(get_config(args[0]), SHAPE_CELLS[args[1]])
+    return soe.make_objective(techlib.make_tech_config(*case["tech"]), graph,
+                              Strategy.parse(case["strategy"]),
+                              template=Budgets.default(),
+                              ppe=PPEConfig(n_tilings=case["n_tilings"]))
+
+
+def refine_objective(case: dict, device):
+    """The port's `cooptimize.make_refine_objective` of one golden case:
+    the first design of the case's sweep spec, on ``device``."""
+    from repro_torch.core import cooptimize, sweeprunner, techlib
+    spec = sweeprunner.SweepSpec.from_dict(case["spec"])
+    lb = sweeprunner.enumerate_labels(spec)[0]
+    return cooptimize.make_refine_objective(
+        techlib.make_tech_config(lb.logic, lb.hbm, lb.net),
+        spec.budgets(lb.scale), sweeprunner.scenario_for(spec, lb.cell),
+        sweeprunner.resolve_label(spec, lb, device),
+        sweeprunner.spec_ppe(spec), case["norms"],
+        cooptimize.RefineConfig(), profile=spec.profile)
+
+
+def soe_golden_port(golden: dict, device) -> dict:
+    """The port's numbers at every point of the golden file, on
+    ``device``: each objective's values and gradients (one vmapped
+    ``grad_and_value`` over the points) and the batched descent's iterates
+    and values."""
+    import torch
+    from repro_torch.core import soe
+    out = {}
+    for kind in ("objective", "refine"):
+        out[kind] = []
+        for entry in golden[kind]:
+            f = soe_objective(entry["case"]) if kind == "objective" \
+                else refine_objective(entry["case"], device)
+            x = torch.tensor(entry["points"], dtype=torch.float32,
+                             device=device)
+            g, v = torch.func.vmap(torch.func.grad_and_value(f))(x)
+            out[kind].append({"values": v.double().cpu().tolist(),
+                              "grads": g.double().cpu().tolist()})
+    d = golden["descent"]
+    steps = []
+    res = soe.optimize(
+        soe_objective(golden["objective"][d["objective"]]["case"]),
+        soe.SOEConfig(steps=d["steps"], starts=d["starts"], seed=d["seed"]),
+        on_step=lambda t, W: steps.append(W.tolist()), device=device)
+    out["descent"] = {"W": steps, "history": res.history,
+                      "n_queries": res.n_queries}
+    return out
+
+
+def hold_to_soe_golden(got: dict, golden: dict, tols: dict) -> int:
+    """``got`` (`soe_golden_port`) against the golden file: values within
+    ``tols["value"]`` relative, each gradient within ``tols["grad"]`` of
+    its norm, the descent's values within ``tols["value"]`` and iterates
+    within ``tols["w"]``, its query count exact.  Returns the numbers
+    compared."""
+    import numpy as np
+    n = 0
+    for kind in ("objective", "refine"):
+        assert len(got[kind]) == len(golden[kind]), kind
+        for i, (g, w) in enumerate(zip(got[kind], golden[kind])):
+            gv, wv = np.asarray(g["values"]), np.asarray(w["values"])
+            assert np.isfinite(gv).all() and np.allclose(
+                gv, wv, rtol=tols["value"], atol=0), (kind, i, gv, wv)
+            for gg, wg in zip(np.asarray(g["grads"]),
+                              np.asarray(w["grads"])):
+                err = np.linalg.norm(gg - wg) / np.linalg.norm(wg)
+                assert err <= tols["grad"], (kind, i, err)
+            n += gv.size + np.asarray(w["grads"]).size
+    g, w = got["descent"], golden["descent"]
+    assert g["n_queries"] == w["n_queries"], (g["n_queries"], w["n_queries"])
+    assert np.allclose(g["history"], w["history"], rtol=tols["value"],
+                       atol=0), (g["history"], w["history"])
+    assert np.allclose(g["W"], w["W"], rtol=0, atol=tols["w"]), "iterates"
+    return n + len(w["history"]) + np.asarray(w["W"]).size
+
+
+def _soe_fields(text: str) -> dict:
+    lines = dict(line.split(None, 1) for line in text.splitlines()
+                 if line.startswith(("strategy", "time", "queries")))
+    return {"strategy": lines["strategy"].strip(),
+            "time_ms": float(lines["time"].split()[0]),
+            "queries": int(lines["queries"])}
+
+
+def phase_deepflow(device, deepflow: dict, runner_dir: Path) -> None:
+    """Phase 4 (e): ``pathfind soe``, the golden objectives and ``pathfind
+    cooptimize --from DIR`` on the card and on the host (see the module
+    docstring)."""
+    import functools
+    import torch
+    from repro_torch.core import cooptimize, scenarios, soe, sweeprunner
+    card = card_line() if device.type == "cuda" else "host rehearsal"
+    where = {"card": str(device), "host": "cpu"}
+    golden = json.loads(GOLDEN_SOE.read_text())
+    t_start = time.perf_counter()
+    print("-- (e) DeepFlow: pathfind soe, the reference's objectives, "
+          "pathfind cooptimize --from DIR")
+
+    # (i) pathfind soe: the batched path on both, the same strategy and
+    # queries, and the reference's printed lines where the golden file
+    # holds them for these flags
+    argv = ["soe", *deepflow["soe"]]
+    runs = {}
+    for k, dev in where.items():
+        with _Spy(soe, "optimize") as calls, \
+                _Spy(soe, "_optimize_sequential") as fd:
+            _, out, _, dt = _cli(argv + ["--device", dev])
+        assert not fd, "pathfind soe fell back to the FD loop"
+        steps = 0
+        for _, kw, res in calls:
+            # the batched path: one query per start and step, one history
+            # entry each (FD costs 17 queries per history entry)
+            assert res.n_queries == len(res.history) > 0, res.n_queries
+            steps += res.n_queries // kw["cfg"].starts
+        runs[k] = dict(_soe_fields(out), out=out, dt=dt, steps=steps)
+        print(f"  pathfind soe on {torch.device(dev).type}: "
+              f"{runs[k]['strategy']} {runs[k]['time_ms']} ms/iter, "
+              f"{runs[k]['queries']} queries; {len(calls)} descents, "
+              f"{steps} eq.-6 steps in {dt:.3f}s = {steps / dt:.2f} "
+              f"steps/s" + (f"  [{card}]" if k == "card" else ""))
+    c, h = runs["card"], runs["host"]
+    assert c["strategy"] == h["strategy"] and c["queries"] == h["queries"]
+    assert abs(c["time_ms"] - h["time_ms"]) <= TIME_RTOL * h["time_ms"], \
+        (c["time_ms"], h["time_ms"])
+    for entry in golden["soe_cli"]:
+        if entry["argv"] == argv:
+            exact = _printed_close(c["out"], entry["stdout"])
+            print(f"  the card's pathfind soe prints the reference's lines"
+                  + ("" if exact else " within the last printed digit"))
+
+    # (ii) the reference's objectives, gradients and descent
+    t0 = time.perf_counter()
+    n = hold_to_soe_golden(soe_golden_port(golden, device), golden,
+                           SOE_TOLS)
+    print(f"  {n} numbers held to {GOLDEN_SOE.name} (values {SOE_TOLS}) "
+          f"in {time.perf_counter() - t0:.3f}s")
+
+    # (iii) pathfind cooptimize --from phase 4 (d)'s card-written dirs
+    for name in deepflow["dirs"]:
+        src = runner_dir / f"{name}-card"
+        spec, _ = sweeprunner.load_sweep(str(src))
+        scn = spec.scenario_spec.variants()[0].resolve()
+        base = set(sweeprunner.LABEL_FIELDS) | set(scn.fields) | {"key"}
+        got = {}
+        for k, dev in where.items():
+            out_path = runner_dir / f"{name}-refined-{k}.jsonl"
+            with _Spy(cooptimize, "refine_sweep") as calls:
+                _, _, err, dt = _cli(["cooptimize", "--from", src,
+                                      *deepflow["cooptimize"], "--out",
+                                      out_path, "--device", dev])
+            stats = calls[0][2]
+            starts = int(deepflow["cooptimize"][
+                deepflow["cooptimize"].index("--starts") + 1])
+            steps = stats.n_objective_evals // starts
+            recs = _jsonl(out_path)
+            assert [r["key"] for r in recs] == \
+                [r["key"] for r in stats.records]
+            for r in recs:
+                assert base <= set(r) and r["refined"] is True, r["key"]
+                assert set(r["knobs"]) == set(cooptimize.KNOBS), r["key"]
+            got[k] = (stats, recs)
+            print(f"  cooptimize --from {name} ({stats.scenario}"
+                  f"{', profile' if spec.profile else ''}) on "
+                  f"{torch.device(dev).type}: {stats.n_candidates} "
+                  f"candidates, {stats.n_refined} refined, "
+                  f"{stats.n_unimproved} unimproved, {stats.n_dominating} "
+                  f"dominating; {steps} eq.-6 steps in {dt:.3f}s = "
+                  f"{steps / dt:.2f} steps/s"
+                  + (f"  [{card}]" if k == "card" else ""))
+        (cs, crecs), (hs, hrecs) = got["card"], got["host"]
+        for f in ("n_candidates", "n_refined", "n_unimproved",
+                  "n_dominating", "n_objective_evals"):
+            assert getattr(cs, f) == getattr(hs, f), \
+                (name, f, getattr(cs, f), getattr(hs, f))
+        n = _held_records(crecs, hrecs, f"cooptimize --from {name}")
+        print(f"  {name}: {len(crecs)} refined records held to the "
+              f"host's ({n} numbers)")
+
+    # (iv) one profiled step of each engine (4 starts: the vmapped value
+    # and gradient, then the eq.-6 update of the budget block), card only
+    if device.type == "cuda":
+        from repro_torch.core.age import Budgets
+        refine = golden["refine"][-1]
+        cases = (
+            ("pathfind soe", soe_objective(golden["objective"][1]["case"]),
+             torch.stack(soe._initial_starts(soe.SOEConfig(starts=4),
+                                             Budgets.default(), device))),
+            (f"cooptimize ({refine['case']['spec']['scenario']}, composed "
+             f"objectives)", refine_objective(refine["case"], device),
+             torch.tensor(refine["points"] * 2, dtype=torch.float32,
+                          device=device)))
+        proj = functools.partial(soe._project_simplexes, min_frac=1e-3)
+        for what, f, W in cases:
+            vg = torch.func.vmap(torch.func.grad_and_value(f))
+
+            def step():
+                G, _ = vg(W)
+                soe.eq6_update(W[:, :17], W[:, :17], G[:, :17], 0.05, 0.7,
+                               proj)
+            step()
+            _device_profile(step, 1, f"eq.-6 step of {what}, "
+                            f"{W.shape[0]} starts")
+    print(f"# phase 4 (e): {time.perf_counter() - t_start:.2f}s")
 
 
 def _consistency(model, params, device, check_len: int) -> None:
@@ -1475,7 +1773,7 @@ def _check_launches(mods: dict, expected: dict, device, what: str) -> dict:
 def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
         check_len: int, recurrent: dict, steps: int = 80,
         starts: int = 6, search: dict = SEARCH,
-        runner: dict = RUNNER) -> list:
+        runner: dict = RUNNER, deepflow: dict = DEEPFLOW) -> list:
     """Phases 2-6; returns the per-kernel result objects.  ``cases`` maps
     each kernel to its (compared, timed) cases."""
     from repro_torch.configs.base import get_config, reduced
@@ -1494,8 +1792,9 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
           f"the rest fit, reports and validate)")
     phase_predict(device, out.profile_path)
     phase_search(device, search)
-    phase_runner(device, runner, workdir.parent / f"{workdir.name}-runner",
-                 out.profile_path)
+    runner_dir = workdir.parent / f"{workdir.name}-runner"
+    phase_runner(device, runner, runner_dir, out.profile_path)
+    phase_deepflow(device, deepflow, runner_dir)
     t3 = time.perf_counter()
     print(f"# phase 4: {t3 - t2:.2f}s")
     serve_launches = phase_serve(device, serve_kw, check_len)

@@ -2,10 +2,10 @@
 
 A copy of the reference's ``repro.core.objectives``: it imports nothing
 but the standard library, so only this paragraph differs.  The port calls
-its folds with ``xp=numpy`` only; the traced folds that pass an array
-module of tensors come with their consumers (ROADMAP queue 1 items 8 and
-11).  The checkpoint and failure models named below are copied into
-``core/scenarios.py``.
+its folds with ``xp=numpy`` and, in the scenarios' differentiable refine
+folds, with ``xp=tensors.XP`` (torch functions that take what
+``jax.numpy``'s take).  The checkpoint and failure models named below are
+copied into ``core/scenarios.py``.
 
 Scenarios (repro.core.scenarios) historically hard-coded their objective
 tuples ("time_s", "devices") in four parallel fold implementations.  This

@@ -30,20 +30,21 @@ than the model, and where each goes (ROADMAP queue 1):
   * the compiled-function caches (``CompiledEntry``, ``pin_compiled``,
     ``compile_cache_stats``, ``clear_compiled_caches``) and cross-design
     bucketing: item 11 decides on a torch counterpart (``compileahead``);
-    nothing here is compiled, so nothing is cached but rows;
+    nothing here is compiled, so nothing is cached but rows (and
+    `evaluate_budgets`' vmapped functions, per skeleton);
   * ``shard_devices`` and ``evaluate_matrix(devices > 1)``: item 9
     (parallelism).  One card is one device; asking for more raises;
-  * ``evaluate_budgets`` (the SOE's budget-space batch): item 8;
   * the device-resident streaming frontier (``frontier_*``): item 11;
   * `sweep`'s ``profile`` (calibrated efficiencies on every point): item 7,
     with its first caller; its ``strategies_fn`` hook, which nothing sets;
   * `PredictionCache`'s one-key ``get`` / ``put``: the evaluator looks up
     and inserts a batch at a time (``get_many`` / ``put_many``).
 
-Kept without a caller in this package yet, so that code written against
-the reference's public names runs on either: `hw_ctx` (the live hardware
-ctx of the traced objective folds, items 8 and 11) and the deprecated
-`evaluate_points` alias of `evaluate`.
+`evaluate_budgets` scores a stack of SOE budget vectors in one vmapped,
+differentiable call; `hw_ctx` is the live hardware ctx of the traced
+refine folds (`core/cooptimize.py`).  Kept without a caller in this
+package, so that code written against the reference's public names runs
+on either: the deprecated `evaluate_points` alias of `evaluate`.
 """
 
 from __future__ import annotations
@@ -574,6 +575,63 @@ def evaluate_points(points: Sequence[EvalPoint],
     return _evaluate_points_impl(points, ppe=ppe, cache=cache,
                                  min_batch_jit=min_batch_jit,
                                  shard_devices=shard_devices)
+
+
+# ---------------------------------------------------------------------------
+# Budget-space batching (the SOE axis)
+# ---------------------------------------------------------------------------
+
+
+_BUDGET_FNS: "collections.OrderedDict[tuple, Callable]" = \
+    collections.OrderedDict()
+_BUDGET_FNS_MAXSIZE = 256
+_BUDGET_LOCK = threading.Lock()
+
+
+def evaluate_budgets(tech: techlib_lib.TechConfig, graph: ComputeGraph,
+                     strategy: Strategy, budget_vectors,
+                     system: Optional[SystemGraph] = None,
+                     template: Optional[Budgets] = None,
+                     ppe: PPEConfig = PPEConfig(),
+                     pod_bw: Optional[float] = None,
+                     device=None) -> torch.Tensor:
+    """Score a (B, DIM) stack of SOE budget vectors in one vmapped call.
+
+    The budget-space analogue of `BatchedEvaluator.evaluate`: goes through
+    the differentiable AGE (``discrete=False``), so the (B,) float32
+    result is also differentiable w.r.t. the budget stack.  (`soe.optimize`
+    builds its own vmapped value and gradient over the same objective for
+    the GD loop; use this for one-shot batched budget scans.)  A tensor
+    stack is scored on its own device, an array on ``device`` (the card
+    unless the caller asks for ``"cpu"``).  The vmapped function is
+    memoized per (tech, graph, strategy, system, ppe, template) skeleton.
+    """
+    like = template or Budgets.default()
+    key = (tech, graph.fingerprint(), strategy, system, ppe, pod_bw,
+           like.node_area_mm2, like.proc_chip_area_mm2, like.power_w)
+    with _BUDGET_LOCK:
+        fn = _BUDGET_FNS.get(key)
+        if fn is not None:
+            _BUDGET_FNS.move_to_end(key)
+    if fn is None:
+        def f(w):
+            budgets = Budgets.from_vector(w, like)
+            arch = age_lib.generate(tech, budgets, discrete=False)
+            bd = simulate.predict(arch, graph, strategy, system=system,
+                                  cfg=ppe, pod_bw=pod_bw)
+            return as_f32(bd.total_s, w.device)
+
+        fn = torch.func.vmap(f)
+        with _BUDGET_LOCK:
+            fn = _BUDGET_FNS.setdefault(key, fn)
+            while len(_BUDGET_FNS) > _BUDGET_FNS_MAXSIZE:
+                _BUDGET_FNS.popitem(last=False)
+    if torch.is_tensor(budget_vectors):
+        W = budget_vectors.to(F32)
+    else:
+        W = torch.as_tensor(np.asarray(budget_vectors, dtype=np.float32),
+                            device=resolve_device(device))
+    return fn(W)
 
 
 # ---------------------------------------------------------------------------

@@ -161,7 +161,11 @@ def gemm_time(arch: MicroArch, m: int, n: int, k: int, b: int = 1,
     tilings, per_candidate = candidate_times(arch, m, n, k, b, dtype_bytes,
                                              cfg)
     best = torch.argmin(per_candidate)
-    t_best = per_candidate[best] + cfg.kernel_overhead_s
+    # index_select, not ``per_candidate[best]``: under torch.func.grad a
+    # tensor index is read on the host, which vmap refuses; the gradient
+    # still goes to the first minimum alone, as the reference's does
+    t_best = (torch.index_select(per_candidate, 0, best.reshape(1))
+              .reshape(()) + cfg.kernel_overhead_s)
     if return_tiling:
         return t_best, np.asarray(tilings[int(best)], dtype=np.int64)
     if key is not None:
@@ -305,3 +309,18 @@ def capacity_pressure_derate(occupancy: float,
         return float("inf")
     over = max(occ - knee, 0.0) / max(1.0 - knee, 1e-9)
     return 1.0 + 0.5 * over * over
+
+
+def capacity_pressure_derate_soft(occupancy,
+                                  knee: float = CAPACITY_PRESSURE_KNEE):
+    """Differentiable variant of `capacity_pressure_derate` for
+    gradient-based refinement (`repro_torch.core.cooptimize`): the same
+    quadratic ramp between ``knee`` and full occupancy, but the hard
+    infeasibility wall at >= 100% becomes a steep quadratic barrier, so
+    gradients keep pointing back toward the feasible region instead of
+    vanishing into inf.  A float32 tensor; autograd and ``torch.func``
+    transforms pass through."""
+    occ = as_f32(occupancy, torch.device("cpu"))
+    over = div(maximum(occ - knee, 0.0), max(1.0 - knee, 1e-9))
+    wall = maximum(occ - 1.0, 0.0)
+    return 1.0 + 0.5 * over * over + 1e3 * wall * wall

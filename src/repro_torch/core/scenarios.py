@@ -25,11 +25,12 @@ attention GEMMs already charge KV *bandwidth* per step).
 
 The folds here are the reference's host folds, in float64 numpy, line for
 line: `Scenario.record` and `Scenario.metrics_fold` fed the same metric
-rows and hardware give the reference's records bit for bit.  The traced
-folds are not ported yet and raise ``NotImplementedError``:
+rows and hardware give the reference's records bit for bit.
+`Scenario.refine_objectives`, cooptimize's differentiable fold, is the
+reference's over tensors (its array module ``xp`` is `tensors.XP`);
 `Scenario.frontier_fold` (the device-resident streaming frontier, ROADMAP
-queue 1 item 11) and `Scenario.refine_objectives` (cooptimize's
-differentiable refinement, item 8).  The checkpoint and failure timings
+queue 1 item 11) is not ported yet and raises ``NotImplementedError``.
+The checkpoint and failure timings
 the goodput objective reads (``repro.checkpoint.manager``,
 ``repro.runtime.fault`` in the reference) are copied below, as the
 functions this module needs.
@@ -52,6 +53,7 @@ from repro_torch.core.graph import ComputeGraph
 from repro_torch.core.parallelism import Strategy
 from repro_torch.core.pathfinder import EvalPoint
 from repro_torch.core.placement import SystemGraph
+from repro_torch.core.tensors import XP, div
 
 DTYPE_BYTES = 2                     # bf16 weights / KV cache
 
@@ -352,6 +354,31 @@ class Scenario:
             return recs
         return fold
 
+    def _custom_refine_fold(self, dp: "DesignPoint", units_fn):
+        """Differentiable refine fold over a composed objective set.
+
+        ``units_fn(xp, bds, ctx) -> values`` maps the per-eval-point
+        `simulate.TimeBreakdown`s (soft-derated, barrier-penalized —
+        gradients must point back into the feasible region) to base
+        objective/unit values; registry objectives evaluate on top of the
+        LIVE hardware ctx (`pathfinder.hw_ctx`), so DVFS voltage reaches
+        energy through `techlib.dynamic_energy_scale`.  Returns canonical
+        (sign-applied) scalars ordered like `refine_objective_fields`.
+        ``xp`` is `tensors.XP`, the folds' array module over tensors.
+        """
+        consts = self._objective_consts(dp.cfg, dp.strategy)
+        extras = self.extra_objectives
+        fields = self.refine_objective_fields
+        signs = objectives_lib.canonical_signs(fields)
+
+        def fold(bds, ctx):
+            vals: Dict[str, object] = dict(ctx)
+            vals.update(consts)
+            vals.update(units_fn(XP, bds, vals))
+            objectives_lib.evaluate(XP, extras, vals)
+            return tuple(s * vals[f] for s, f in zip(signs, fields))
+        return fold
+
     def cells(self, cfg: ArchConfig) -> Tuple[str, ...]:
         """Shape cells this scenario needs for one architecture."""
         raise NotImplementedError
@@ -393,24 +420,20 @@ class Scenario:
 
     def refine_objectives(self, dp: DesignPoint):
         """Differentiable objective fold for cross-stack refinement
-        (``repro.core.cooptimize`` in the reference).
+        (`repro_torch.core.cooptimize`).
 
         Returns ``fold(bds, ctx) -> tuple`` mapping the per-eval-point
         predicted `simulate.TimeBreakdown`s (one per `eval_points` entry)
-        and the candidate's traced hardware ctx (`pathfinder.hw_ctx` —
-        capacity, bandwidths, energy coefficients, all theta-dependent)
-        to this scenario's *continuous* objective scalars, ordered like
-        `refine_objective_fields` (discrete objectives such as device
+        and the candidate's live hardware ctx (`pathfinder.hw_ctx` —
+        capacity, bandwidths, energy coefficients, all theta-dependent
+        tensors) to this scenario's *continuous* objective scalars, ordered
+        like `refine_objective_fields` (discrete objectives such as device
         count are omitted — they are fixed within one refinement).
         Max-direction objectives are sign-flipped: every scalar is
-        canonically minimized.
-
-        Not ported yet: it comes with cooptimize (ROADMAP queue 1 item 8),
-        its only consumer, with ``roofline.capacity_pressure_derate_soft``.
+        canonically minimized.  Autograd and ``torch.func`` transforms
+        pass through every fold.
         """
-        raise NotImplementedError(
-            f"{self.name}: refine_objectives (cooptimize's differentiable "
-            f"fold) is not ported yet (ROADMAP queue 1 item 8)")
+        raise NotImplementedError
 
     def frontier_fold(self, cfg: ArchConfig, strategy: Strategy):
         """Traceable objective fold for the device-resident streaming
@@ -494,6 +517,24 @@ class TrainScenario(Scenario):
             "step_time_s": t, "step_compute_s": float(row[1]),
             "step_comm_s": float(row[2]), "base_tokens_per_s": base}))
         return rec
+
+    def refine_objectives(self, dp: DesignPoint):
+        if self._custom:
+            tokens = self._step_tokens()
+            devices = float(dp.strategy.devices)
+
+            def units(xp, bds, vals):
+                t = bds[0].total_s
+                return {"time_s": t, "devices": devices,
+                        "step_time_s": t,
+                        "step_compute_s": bds[0].compute_s,
+                        "step_comm_s": bds[0].comm_s,
+                        "base_tokens_per_s": div(tokens, t)}
+            return self._custom_refine_fold(dp, units)
+
+        def fold(bds, ctx):
+            return (bds[0].total_s,)               # step time; devices fixed
+        return fold
 
     def metrics_fold(self, cfg: ArchConfig, strategy: Strategy, cell_id):
         def fold(rows, hw):
@@ -587,6 +628,35 @@ class ServingScenario(Scenario):
             "device_s_per_token": float(bd.cost_device_s_per_token),
             "base_tokens_per_s": float(bd.tokens_per_s)}))
         return rec
+
+    def refine_objectives(self, dp: DesignPoint):
+        from repro_torch.core import roofline
+        cell = SHAPE_CELLS[self.decode_cell]
+        w_dev, kv_dev = serving_bytes_per_device(dp.cfg, dp.strategy, cell)
+        devices = dp.strategy.devices
+        batch = max(cell.global_batch, 1)
+        if self._custom:
+            def units(xp, bds, vals):
+                occ = div(w_dev + kv_dev,
+                          xp.maximum(vals["dram_capacity"], 1.0))
+                tpot = bds[1].total_s \
+                    * roofline.capacity_pressure_derate_soft(occ)
+                cost = div(devices * tpot, batch)
+                return {"ttft_s": bds[0].total_s,
+                        "cost_device_s_per_token": cost,
+                        "token_compute_s": div(bds[1].compute_s, batch),
+                        "token_comm_s": div(bds[1].comm_s, batch),
+                        "device_s_per_token": cost,
+                        "base_tokens_per_s": div(batch, tpot)}
+            return self._custom_refine_fold(dp, units)
+
+        def fold(bds, ctx):
+            occ = div(w_dev + kv_dev, XP.maximum(ctx["dram_capacity"], 1.0))
+            tpot = bds[1].total_s \
+                * roofline.capacity_pressure_derate_soft(occ)
+            ttft = bds[0].total_s
+            return (ttft, div(devices * tpot, batch))   # (ttft_s, cost/token)
+        return fold
 
     def metrics_fold(self, cfg: ArchConfig, strategy: Strategy, cell_id):
         from repro_torch.core import pathfinder, roofline
@@ -755,6 +825,52 @@ class ServingTrafficScenario(ServingScenario):
             "device_s_per_token": rec["cost_device_s_per_token"],
             "base_tokens_per_s": rec["tokens_per_s"]}))
         return rec
+
+    def refine_objectives(self, dp: DesignPoint):
+        from repro_torch.core import roofline
+        cell = SHAPE_CELLS[self.decode_cell]
+        w_dev, kv_dev = serving_bytes_per_device(dp.cfg, dp.strategy, cell)
+        c = self._consts(float(dp.strategy.devices))
+        if self._custom:
+            slots_f, k_pf = self._amortize_consts()
+
+            def units(xp, bds, vals):
+                occ = div(w_dev + kv_dev,
+                          xp.maximum(vals["dram_capacity"], 1.0))
+                t_d = bds[1].total_s \
+                    * roofline.capacity_pressure_derate_soft(occ)
+                st = traffic.continuous_batching_stats(
+                    xp, bds[0].total_s, t_d, c, mask_infeasible=False)
+                wall = xp.maximum(st["util"] - 1.0, 0.0)
+                barrier = 1.0 + 1e3 * wall * wall
+                # minimized values scale UP with the barrier, the
+                # maximized throughput scales DOWN — descent always
+                # points back inside the feasible region
+                return {"ttft_p99_s": st["ttft_p99_s"] * barrier,
+                        "cost_device_s_per_token":
+                            st["cost_device_s_per_token"] * barrier,
+                        "device_s_per_token":
+                            st["cost_device_s_per_token"] * barrier,
+                        "base_tokens_per_s": st["tokens_per_s"] / barrier,
+                        "token_compute_s": div(bds[1].compute_s, slots_f)
+                        + bds[0].compute_s * k_pf,
+                        "token_comm_s": div(bds[1].comm_s, slots_f)
+                        + bds[0].comm_s * k_pf}
+            return self._custom_refine_fold(dp, units)
+
+        def fold(bds, ctx):
+            occ = div(w_dev + kv_dev, XP.maximum(ctx["dram_capacity"], 1.0))
+            t_d = bds[1].total_s \
+                * roofline.capacity_pressure_derate_soft(occ)
+            st = traffic.continuous_batching_stats(
+                XP, bds[0].total_s, t_d, c, mask_infeasible=False)
+            # the hard util wall is flat after clamping; a soft barrier
+            # keeps descent pointed back inside the feasible region
+            wall = XP.maximum(st["util"] - 1.0, 0.0)
+            barrier = 1.0 + 1e3 * wall * wall
+            return (st["ttft_p99_s"] * barrier,
+                    st["cost_device_s_per_token"] * barrier)
+        return fold
 
     def metrics_fold(self, cfg: ArchConfig, strategy: Strategy, cell_id):
         from repro_torch.core import pathfinder, roofline

@@ -2,11 +2,10 @@
 
 A copy of the reference's ``repro.core.traffic``; only this paragraph and
 the shape-cell import differ.  The port calls the ``xp``-generic functions
-with ``xp=numpy`` only: the traced folds that would pass an array module
-of tensors (``frontier_fold``, ``refine_objectives``) come with their
-consumers (ROADMAP queue 1 items 11 and 8), and with them an ``xp``
-namespace on ``core/tensors.py`` (``torch.maximum`` takes no Python
-float, and ``torch.max(x, axis=0)`` returns a pair).
+with ``xp=numpy`` (records, metrics folds) and with ``xp=tensors.XP``
+(the scenarios' differentiable refine folds): a namespace over torch whose
+functions take what ``jax.numpy``'s take (``torch.maximum`` takes no
+Python float, and ``torch.max(x, axis=0)`` returns a pair).
 
 The static serving scenario scores one resident batch per design — a
 per-device metric.  Capacity planning needs the *system* question: given a

@@ -69,11 +69,29 @@ and a missing card is an error, never a silent fall-back to the host):
               PYTHONPATH=src python -m repro_torch.pathfind validate \\
                   --out calib
 
+  soe     DeepFlow's search and optimization engine (repro_torch.core.soe):
+          rank every parallelism strategy on the template budgets, then
+          run the eq.-6 multi-start descent over the budget vector through
+          the differentiable CrossFlow for the best few:
+
+              PYTHONPATH=src python -m repro_torch.pathfind soe \\
+                  --arch qwen1.5-0.5b --cell train_4k --devices 64
+
+  cooptimize  sweep -> refine (repro_torch.core.cooptimize): descend
+          jointly over budgets and technology knobs (DVFS voltage, HBM
+          bandwidth / capacity) around the Pareto frontier of a
+          checkpointed sweep, written by either package, and stream the
+          refined records in the sweep's schema to DIR/refined.jsonl:
+
+              PYTHONPATH=src python -m repro_torch.pathfind cooptimize \\
+                  --from sweeps/train --top-k 2 --steps 10
+
 Every file written here is in the reference's format, so the reference's
 ``python -m repro.pathfind sweep --profile DIR/profile.json`` consumes a
-profile fitted on the card.  The reference's other subcommands exit 2
-naming the ROADMAP queue 1 item that ports them: soe and cooptimize (item
-8), explore and sweep-worker (item 11).
+profile fitted on the card, and each package's cooptimize refines the
+other's sweep directory.  The reference's other subcommands exit 2 naming
+the ROADMAP queue 1 item that ports them: explore and sweep-worker (item
+11).
 """
 
 from __future__ import annotations
@@ -209,8 +227,7 @@ LATER_SWEEP_FLAGS = (
      "cache (nothing is compiled here)", 11),
 )
 # subcommands of the reference CLI that later slices port
-LATER_COMMANDS = {"soe": 8, "cooptimize": 8, "explore": 11,
-                  "sweep-worker": 11}
+LATER_COMMANDS = {"explore": 11, "sweep-worker": 11}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -358,6 +375,55 @@ def _parser() -> argparse.ArgumentParser:
                          "like with like)")
     va.add_argument("--device", default="cuda",
                     help="where the prediction runs (default cuda)")
+
+    co = sub.add_parser("cooptimize",
+                        help="sweep -> refine cross-stack co-optimization")
+    co.add_argument("--from", dest="from_dir", required=True, metavar="DIR",
+                    help="checkpointed sweep directory (spec.json + "
+                         "results.jsonl) written by either package; seeds "
+                         "are read, never re-scored")
+    co.add_argument("--scenario", default=None,
+                    help="must match the sweep's scenario if given "
+                         "(the spec in DIR is authoritative)")
+    co.add_argument("--top-k", type=int, default=4,
+                    help="frontier points to refine (default 4)")
+    co.add_argument("--candidates", type=int, default=2,
+                    help="discrete (mesh, strategy) candidates per seed, "
+                         "ranked from the sweep's own records (default 2)")
+    co.add_argument("--steps", type=int, default=24,
+                    help="refinement GD steps (default 24)")
+    co.add_argument("--starts", type=int, default=4,
+                    help="multi-start batch size (default 4)")
+    co.add_argument("--lr", type=float, default=0.05)
+    co.add_argument("--seed", type=int, default=0)
+    co.add_argument("--scenario-param", action="append",
+                    type=_scenario_param, default=None,
+                    metavar="KEY=V[,V2,...]",
+                    help="must match the sweep's scenario params if given "
+                         "(the spec in DIR is authoritative)")
+    co.add_argument("--objectives", type=_csv_list, default=None,
+                    metavar="OBJ1,OBJ2,...",
+                    help="must match the sweep's objectives if given "
+                         "(the spec in DIR is authoritative)")
+    co.add_argument("--out", default=None, metavar="FILE",
+                    help="refined-records JSONL path "
+                         "(default DIR/refined.jsonl)")
+    co.add_argument("--csv", default=None, help="also write CSV here")
+    _add_device_flag(co, "the refinement")
+
+    so = sub.add_parser("soe", help="strategy x budget co-optimization")
+    so.add_argument("--arch", required=True)
+    so.add_argument("--cell", required=True)
+    so.add_argument("--devices", type=int, default=64)
+    so.add_argument("--logic", default="N7")
+    so.add_argument("--hbm", default="HBM2E")
+    so.add_argument("--net", default="IB-NDR-X8")
+    so.add_argument("--steps", type=int, default=20)
+    so.add_argument("--starts", type=int, default=4)
+    so.add_argument("--tilings", type=int, default=8)
+    so.add_argument("--no-search-arch", action="store_true",
+                    help="rank strategies only (skip the budget GD)")
+    _add_device_flag(so, "the search")
 
     for cmd, item in LATER_COMMANDS.items():
         sub.add_parser(cmd, help=f"not ported yet (ROADMAP queue 1 item "
@@ -769,6 +835,93 @@ def _cmd_size(args) -> int:
     return 0
 
 
+def _cmd_cooptimize(args) -> int:
+    """Sweep -> refine pipeline (repro_torch.core.cooptimize)."""
+    import json
+
+    from repro_torch.core import cooptimize, sweeprunner
+
+    spec, records = sweeprunner.load_sweep(args.from_dir)
+    if not records:
+        # frontier-only sweep: seed refinement from the materialized
+        # frontier (exactly the points worth refining anyway)
+        fp = os.path.join(args.from_dir, "frontier.jsonl")
+        if os.path.exists(fp):
+            with open(fp) as fh:
+                records = [json.loads(ln) for ln in fh if ln.strip()]
+    if args.scenario is not None and args.scenario != spec.scenario:
+        print(f"error: --scenario {args.scenario} contradicts the sweep "
+              f"spec in {args.from_dir} (scenario={spec.scenario}); the "
+              f"spec is authoritative — drop the flag", file=sys.stderr)
+        return 2
+    if args.scenario_param:
+        want = _scenario_params_dict(args.scenario_param)
+        have = dict(spec.scenario_params or {})
+        if any(have.get(k) != v for k, v in want.items()):
+            print(f"error: --scenario-param contradicts the sweep spec in "
+                  f"{args.from_dir} (params={have}); the spec is "
+                  f"authoritative — drop the flag", file=sys.stderr)
+            return 2
+    if args.objectives is not None \
+            and tuple(args.objectives) != (spec.objectives or ()):
+        print(f"error: --objectives {','.join(args.objectives)} "
+              f"contradicts the sweep spec in {args.from_dir} "
+              f"(objectives="
+              f"{','.join(spec.objectives) if spec.objectives else '<default>'}"
+              f"); the spec is authoritative — drop the flag",
+              file=sys.stderr)
+        return 2
+    cfg = cooptimize.RefineConfig(
+        top_k=args.top_k, candidates_per_seed=args.candidates,
+        steps=args.steps, starts=args.starts, lr=args.lr, seed=args.seed)
+    out_path = args.out or os.path.join(args.from_dir, "refined.jsonl")
+    stats = cooptimize.refine_sweep((spec, records), cfg=cfg,
+                                    out_path=out_path, verbose=False,
+                                    device=args.device)
+    scn = spec.scenario_spec.variants()[0].resolve()
+    csv_text = sweeprunner.to_csv(stats.records, scn)
+    print(csv_text)
+    if args.csv:
+        with open(args.csv, "w") as fh:
+            fh.write(csv_text + "\n")
+        print(f"# wrote {len(stats.records)} refined points to {args.csv}",
+              file=sys.stderr)
+    print(f"# cooptimize[{stats.scenario}]: {stats.n_records} sweep "
+          f"records -> frontier {stats.n_frontier}; refined "
+          f"{stats.n_candidates} candidates around {stats.n_seeds} seeds "
+          f"({stats.n_objective_evals} objective evals, "
+          f"{stats.n_unimproved} unimproved) in {stats.elapsed_s:.1f}s",
+          file=sys.stderr)
+    print(f"# {stats.n_dominating}/{stats.n_refined} refined points "
+          f"dominate >=1 sweep frontier point; refined records -> "
+          f"{stats.out_path}", file=sys.stderr)
+    if stats.n_refined and not stats.n_dominating:
+        print("# warning: no refined point dominates the sweep frontier "
+              "(try more --steps/--starts)", file=sys.stderr)
+    return 0
+
+
+def _cmd_soe(args) -> int:
+    """Strategy x budget co-optimization (repro_torch.core.soe)."""
+    from repro_torch.configs.base import SHAPE_CELLS, get_config
+    from repro_torch.core import lmgraph, soe, techlib
+    from repro_torch.core.roofline import PPEConfig
+
+    tech = techlib.make_tech_config(args.logic, args.hbm, args.net)
+    g = lmgraph.build_graph(get_config(args.arch), SHAPE_CELLS[args.cell])
+    res = soe.co_optimize(
+        tech, g, n_devices=args.devices,
+        cfg=soe.SOEConfig(steps=args.steps, starts=args.starts),
+        search_arch=not args.no_search_arch,
+        ppe=PPEConfig(n_tilings=args.tilings), device=args.device)
+    print(f"strategy  {res.strategy.name}")
+    print(f"time      {res.time_s*1e3:.3f} ms/iter")
+    print(f"queries   {res.n_queries}")
+    for comp, frac in res.budgets.area_frac.items():
+        print(f"area[{comp:9s}] {float(frac):.3f}")
+    return 0
+
+
 def _cmd_plan(args) -> int:
     from repro_torch.configs.base import SHAPE_CELLS, get_config
     from repro_torch.core import planner
@@ -801,8 +954,9 @@ def main(argv=None) -> int:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     try:
         return {"sweep": _cmd_sweep, "plan": _cmd_plan, "size": _cmd_size,
-                "calibrate": _cmd_calibrate,
-                "validate": _cmd_validate}[args.cmd](args)
+                "calibrate": _cmd_calibrate, "validate": _cmd_validate,
+                "soe": _cmd_soe,
+                "cooptimize": _cmd_cooptimize}[args.cmd](args)
     except ModuleNotFoundError as e:
         print(f"error: unknown arch (no config module): {e.name}",
               file=sys.stderr)

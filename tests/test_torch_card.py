@@ -870,3 +870,26 @@ def test_card_runner_records_match_the_golden_records(tmp_path):
                for r in cs._jsonl(d / "results.jsonl")]
         assert cs._held_records(got, want, scenario) > 0
 
+
+
+GOLDEN_SOE = Path(__file__).with_name("test_torch_golden_soe.json")
+
+
+@pytest.mark.cuda
+def test_card_soe_objectives_match_the_golden_file():
+    """The SOE's and the refinement's objectives on the card at the points
+    of tests/test_torch_golden_soe.json (the reference's own values and
+    gradients), through one vmap of grad_and_value each, and its
+    three-step batched descent: values within 1e-4 relative, gradients
+    within 1e-3 of their norm, iterates within 1e-4
+    (``chip_smoke.SOE_TOLS``)."""
+    import importlib.util
+    import json
+    dev = _card()
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    golden = json.loads(GOLDEN_SOE.read_text())
+    got = cs.soe_golden_port(golden, dev)
+    assert cs.hold_to_soe_golden(got, golden, cs.SOE_TOLS) == 504

@@ -29,9 +29,7 @@ LATER_ARGV = ((["--workers", "2"], 11), (["--lease-ttl", "9"], 11),
               (["--no-bucketing"], 11), (["--no-compile-cache"], 11),
               (["--backend", "pipeline"], 11), (["--backend", "thread"], 11),
               (["--backend", "process"], 11), (["--backend", "device"], 9))
-LATER_COMMANDS = ((["soe", "--arch", "qwen1.5-0.5b", "--cell", "train_4k"],
-                   8), (["cooptimize", "--from", "d"], 8),
-                  (["explore", "--arch", "qwen1.5-0.5b"], 11),
+LATER_COMMANDS = ((["explore", "--arch", "qwen1.5-0.5b"], 11),
                   (["sweep-worker", "--dir", "d"], 11))
 UNKNOWN_ARGV = (["--arch", "no-such-arch"], ["--cell", "no_such_cell"],
                 ["--logic", "N99"], ["--hbm", "HBM9"])

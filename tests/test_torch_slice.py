@@ -181,10 +181,15 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
                   eager_rows=2)
     # phase 4 (d)'s runner over the golden file's archs
     runner = dict(cs.RUNNER, arches=cs.RUNNER["golden_arches"])
+    # phase 4 (e): pathfind soe in the golden file's short run, a short
+    # refinement of (d)'s directories
+    deepflow = dict(cs.DEEPFLOW, soe=tuple(cs.SOE_CASES["soe_cli"][1][1:]),
+                    cooptimize=("--top-k", "1", "--candidates", "1",
+                                "--steps", "2", "--starts", "2"))
     rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
                   dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
                   16, recurrent, steps=3, starts=2, search=search,
-                  runner=runner)
+                  runner=runner, deepflow=deepflow)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
     assert "strategy       RC-1-16-d16-p1" in out
@@ -198,6 +203,12 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
         assert f"  {scenario}: {n} records held to the host's, {n} to " \
             "test_torch_golden_runner.jsonl" in out
     assert "pathfind size --from DIR" in out
+    assert "pathfind soe on cpu: RC-4-1-d16-p1 492.126 ms/iter, 6 " \
+        "queries; 3 descents, 9 eq.-6 steps in" in out
+    assert "the card's pathfind soe prints the reference's lines\n" in out
+    assert "504 numbers held to test_torch_golden_soe.json" in out
+    for name in ("train", "traffic"):
+        assert f"  {name}: " in out and f"cooptimize --from {name} (" in out
     assert "decode_step" in out and "plan RC-1-1-d1-p1" in out
     assert "phase 6: recurrentgemma-2b-smoke" in out
     assert "phase 6: xlstm-125m-smoke" in out
