@@ -150,17 +150,21 @@ TOLS = {"float32": (1e-4, 8e-4), "bfloat16": (2e-2, 1.6e-1)}  # rtol, atol
 KERNELS = {     # name -> what the JSON line says about it
     "gemm": {"route": "cuda",
              "source": "src/repro_torch/kernels/csrc/gemm.cu",
-             "replaces": "src/repro/kernels/gemm.py:71"},
+             "replaces": "src/repro/kernels/gemm.py:71",
+             "backward": "none (refuses)"},
     "flash_attention": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:100"},
+        "replaces": "src/repro/kernels/flash_attention.py:100",
+        "backward": "plain recompute"},
     "rglru_scan": {"route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-                   "replaces": "src/repro/kernels/rglru.py:50"},
+                   "replaces": "src/repro/kernels/rglru.py:50",
+                   "backward": "rglru_scan kernel, reversed"},
     "mlstm_parallel": {"route": "cuda",
                        "source": "src/repro_torch/kernels/csrc/mlstm.cu",
-                       "replaces": "src/repro/kernels/mlstm.py:93"},
+                       "replaces": "src/repro/kernels/mlstm.py:93",
+                       "backward": "plain recompute"},
 }
 
 
@@ -311,6 +315,64 @@ CHECK_LEN = 2048        # phase 5's prefill-vs-decode consistency prompt
 RECURRENT = dict(archs=("recurrentgemma-2b", "xlstm-125m"), prefill=(2, 2048),
                  serve=dict(batch=8, prompt_len=128, gen=32),
                  check_len=2048, use_reduced=False)
+# phase 7, training.  (a) each autograd Function (attention, scan, mLSTM)
+# against autograd through its plain version: phase 2's unit cases and the
+# shapes the training runs give it, both dtypes; forwards at phase 2's
+# tolerances (the scan bit for bit), gradients within GRAD_TOLS of their
+# max |value|; the launches per forward + backward.
+GRAD_TOLS = {"float32": 1e-5, "bfloat16": 1e-2}
+GRAD_LAUNCHES = {"flash_attention": 1, "rglru_scan": 2, "mlstm_parallel": 1}
+GRAD_CASES = {
+    "flash_attention": ATTN_UNIT + (
+        ((4, 16, 16, 2048, 2048, 64), dict(causal=True)),      # qwen (b)
+        ((2, 10, 1, 1024, 1024, 256), dict(causal=True,        # rg (c)
+                                           window=RG_WINDOW))),
+    "rglru_scan": RGLRU_UNIT + ((2, 1024, 2560),),
+    "mlstm_parallel": MLSTM_UNIT + ((2, 4, 512, 192),),
+}
+# (b) ``launch.train.train`` of full-width qwen1.5-0.5b at (4, 2048), seed
+# 0, lr 1e-3, warmup 5, a checkpoint after step ``resume_at`` (its state
+# after resume_at + 1 updates), which a second ``train`` resumes for the
+# last 2 steps: losses within RESUME_TOLS["loss"] (rtol) of the
+# uninterrupted run's, parameters within 2 lr of them element by element
+# (AdamW normalises each element's step, so noise in a gradient that
+# should be zero, and the embedding gradient's atomic adds, can move an
+# element by up to lr per step) and within RESUME_TOLS["mean"] of them on
+# average (mean |difference| over mean |parameter|); then ``timed`` steps
+# timed and one profiled.  (c) recurrentgemma-2b and xlstm-125m at full
+# width: ``other_steps`` steps of ``train`` each, one profiled.  (d) the
+# reduced models held to tests/test_torch_golden_train.npz.
+# (e) remat through the kernels' Functions: one step of each reduced arch
+# below (attention, the scan, the mLSTM: every block kind with a kernel)
+# in float32 with remat True and "dots", its loss within
+# REMAT_TOLS["loss"] (rtol) and every gradient within REMAT_TOLS["grad"]
+# of its max |value| of the same step without remat (the card's backward
+# adds some gradients atomically, so not bit for bit), and its kernel
+# launches `_train_launches(cfg, 1, remat)`: the recomputation launches
+# each stacked group's forward kernels again.
+REMAT = dict(archs=("qwen1.5-0.5b", "recurrentgemma-2b", "xlstm-125m"),
+             batch=2, seq=64)
+REMAT_TOLS = dict(loss=1e-6, grad=1e-5)
+TRAIN = dict(arch="qwen1.5-0.5b", batch=4, seq=2048, steps=20, lr=1e-3,
+             warmup=5, resume_at=17, timed=3,
+             others=(("recurrentgemma-2b", 2, 1024), ("xlstm-125m", 2, 512)),
+             other_steps=3, use_reduced=False, grads=GRAD_CASES, remat=REMAT)
+RESUME_TOLS = dict(loss=1e-5, mean=1e-5)
+GOLDEN_TRAIN = ROOT / "tests" / "test_torch_golden_train.npz"
+# what the golden file holds: the reduced archs in float32, numpy weights
+# (`golden_weights`), the data pipeline's batches, AdamW
+# (lr, warmup, total = steps): the loss of every step and the first step's
+# per-leaf gradient norms, held at TRAIN_GOLDEN_TOLS (rtol).  The reduced
+# xlstm-125m's training is chaotic (the mLSTM denominator): half an ulp on
+# every weight moves the reference's own fifth loss by up to 2.3e-3
+# (tests/test_torch_golden_train.py), so its losses after the first
+# update are held to CHAOTIC_LOSS_TOL, its first loss and its gradient
+# norms as the others'.
+TRAIN_GOLDEN = dict(archs=("qwen1.5-0.5b", "recurrentgemma-2b", "xlstm-125m"),
+                    batch=2, seq=32, steps=5, lr=1e-3, warmup=2)
+TRAIN_GOLDEN_TOLS = dict(losses=1e-4, grad_norms=1e-3)
+CHAOTIC_TRAIN = ("xlstm-125m",)
+CHAOTIC_LOSS_TOL = 1e-2
 # Archs whose bf16 stack is chaotic: an mLSTM output divides by a
 # denominator that can come near zero, so one bf16 rounding in a layer's
 # input moves the logits by tens of percent (the reference's own bf16
@@ -1538,8 +1600,7 @@ def _mlstm_layers_check(model, params, device, check_len: int) -> int:
     worst, n = 0.0, 0
     with torch.no_grad():
         x = transformer._embed(params, cfg, ids)
-        for bp, _, kind, akind in transformer._layers(
-                params, None, *transformer.group_layout(cfg)):
+        for bp, _, kind, akind in transformer._layers(params, None, cfg):
             if kind == "mlstm":
                 h = common.norm(cfg.norm_kind, x, bp["ln1"])
                 full = xlstm.mlstm_apply(bp["mlstm"], h, cfg)[:, -1]
@@ -1637,7 +1698,7 @@ def phase_recurrent(device, rec: dict) -> dict:
                 for kind, what in (("rglru", "RG-LRU scan kernels"),
                                    ("mlstm", "mLSTM kernels")):
                     if prof and kinds[kind]:
-                        busy, by_name = prof
+                        busy, by_name, _ = prof
                         ms = sum(t for key, t in by_name.items()
                                  if kind in key) / 1e3
                         print(f"  {what}: {ms:.4f} ms of the profiled "
@@ -1681,12 +1742,502 @@ def phase_recurrent(device, rec: dict) -> dict:
     return expected
 
 
+def function_grads(name: str, args, kwargs=None, seed: int = 0):
+    """A kernel wrapper's forward and gradients (every input) against
+    autograd through its plain version on the same inputs and the same
+    upstream gradient: the forward at phase 2's tolerance (the scan bit
+    for bit), each gradient within GRAD_TOLS of its max |value|, each in
+    its input's dtype.  Returns (the wrapper's kernel launches over its
+    forward and backward, the worst gradient error as a share of its max
+    |value|)."""
+    import torch
+    from repro_torch.kernels import flash_attention, mlstm, ref, rglru
+    mod, fn, plain, ftols = {
+        "flash_attention": (flash_attention, flash_attention.flash_attention,
+                            ref.attention_ref, ATTN_TOLS),
+        "rglru_scan": (rglru, rglru.rglru_scan, ref.rglru_scan_ref, None),
+        "mlstm_parallel": (mlstm, mlstm.mlstm_parallel,
+                           ref.mlstm_parallel_ref, MLSTM_TOLS)}[name]
+    kwargs = kwargs or {}
+    ins = [a.detach().clone().requires_grad_(True) for a in args]
+    ref_ins = [a.detach().clone().requires_grad_(True) for a in args]
+    before = mod.LAUNCHES
+    out = fn(*ins, **kwargs)
+    want = plain(*ref_ins, **kwargs)
+    gen = torch.Generator(device=want.device).manual_seed(seed)
+    up = torch.randn(want.shape, generator=gen, device=want.device)
+    got_g = torch.autograd.grad((out.float() * up).sum(), ins)
+    want_g = torch.autograd.grad((want.float() * up).sum(), ref_ins)
+    if want.device.type == "cuda":
+        torch.cuda.synchronize(want.device)
+    launches = mod.LAUNCHES - before
+    dname = str(args[0].dtype).split(".")[-1]
+    if ftols is None:
+        assert torch.equal(out, want), name
+    else:
+        torch.testing.assert_close(out.float(), want.float(),
+                                   rtol=ftols[dname], atol=ftols[dname])
+    worst = 0.0
+    for g, w, a in zip(got_g, want_g, args):
+        assert g.dtype == a.dtype and g.shape == a.shape, (name, g.dtype)
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        tol = GRAD_TOLS[str(a.dtype).split(".")[-1]]
+        assert err <= tol * scale, (name, tuple(a.shape), err, scale)
+        worst = max(worst, err / max(scale, 1e-30))
+    return launches, worst
+
+
+def phase_grads(device, cases: dict) -> None:
+    """Phase 7 (a): every case of every Function, in both dtypes."""
+    import torch
+    print("== phase 7 (a): the kernels' autograd Functions against "
+          "autograd through their plain versions")
+    gen = torch.Generator(device=device).manual_seed(7)
+    inputs = {"flash_attention": lambda c, dt: (
+        _attn_inputs(c[0], dt, gen, device), c[1]),
+        "rglru_scan": lambda c, dt: (_rglru_inputs(c, dt, gen, device), {}),
+        "mlstm_parallel": lambda c, dt: (_mlstm_inputs(c, dt, gen, device),
+                                         {})}
+    for name, name_cases in cases.items():
+        for dname in ("float32", "bfloat16"):
+            worst, n = 0.0, 0
+            want = GRAD_LAUNCHES[name] if device.type == "cuda" else 0
+            for i, case in enumerate(name_cases):
+                args, kw = inputs[name](case, getattr(torch, dname))
+                launches, err = function_grads(name, args, kw, seed=i)
+                assert launches == want, (name, case, launches, want)
+                worst, n = max(worst, err), n + 1
+            print(f"  {name} {dname}: {n} cases, gradients within "
+                  f"{worst:.2e} of max |grad| (tolerance "
+                  f"{GRAD_TOLS[dname]:g}), {want} kernel launches per "
+                  f"forward + backward")
+
+
+def _train_launches(cfg, steps: int, remat=False) -> collections.Counter:
+    """Kernel launches of ``steps`` forward + backward passes: one per
+    attention and mLSTM layer, two per scan layer (the reversed scan);
+    remat re-launches the forward kernels of the stacked groups."""
+    kinds = collections.Counter(cfg.block_kind(i)
+                                for i in range(cfg.n_layers))
+    per = collections.Counter({"flash_attention": kinds["attn"],
+                               "rglru_scan": 2 * kinds["rglru"],
+                               "mlstm_parallel": kinds["mlstm"]})
+    if remat:
+        from repro_torch.models.transformer import group_layout
+        pat, n_groups, _ = group_layout(cfg)
+        grouped = collections.Counter(bk for bk, _ in pat * n_groups)
+        per.update({"flash_attention": grouped["attn"],
+                    "rglru_scan": grouped["rglru"],
+                    "mlstm_parallel": grouped["mlstm"]})
+    return collections.Counter({k: v * steps for k, v in per.items()})
+
+
+def _batch(cfg, batch: int, seq: int, step: int, device, seed: int = 0):
+    from repro_torch.data import DataConfig, synth_batch
+    return {k: v.to(device) for k, v in synth_batch(
+        DataConfig(global_batch=batch, seq_len=seq, seed=seed), cfg,
+        step).items()}
+
+
+def _profile_train_step(step_fn, out, cfg, batch: int, seq: int, device,
+                        at: int) -> None:
+    """One train step after the run, profiled: busy, idle, launches, the
+    three kernels' device time (the scan's holds its reversed launches)
+    and each Function's backward range (the plain recompute, or the
+    reversed scan), as shares of the busy time."""
+    st = out["state"]
+    b = _batch(cfg, batch, seq, at, device)
+    prof = _device_profile(lambda: step_fn(st.params, st.opt_state,
+                                           st.err_state, b), 1,
+                           f"train step of {cfg.name} ({batch}, {seq})")
+    if not prof:
+        return
+    busy, by_name, spans = prof
+    for kname, keys in (("flash_attention", ("attn_kernel",
+                                             "attn_mma_kernel")),
+                        ("rglru_scan", ("rglru_kernel",
+                                        "rglru_ring_kernel")),
+                        ("mlstm_parallel", ("mlstm_kernel",
+                                            "mlstm_mma_kernel"))):
+        fwd = sum(t for key, t in by_name.items()
+                  if any(k in key for k in keys))
+        bwd, ranges = spans.get(f"repro_torch::{kname}_backward",
+                                (None, 0))
+        if not fwd and bwd is None:
+            continue
+        bwd_text = ("not measured (no range recorded)" if bwd is None else
+                    f"{bwd / 1e3:.4f} ms over {ranges} ranges "
+                    f"({bwd / busy * 100:.2f} %)")
+        what = ("forward and reversed backward launches"
+                if kname == "rglru_scan" else "forward launches")
+        print(f"  {kname}: kernels ({what}) {fwd / 1e3:.4f} ms "
+              f"({fwd / busy * 100:.2f} %), backward range {bwd_text} of "
+              f"{busy / 1e3:.3f} ms busy")
+
+
+def phase_train(device, train: dict, workdir: Path) -> collections.Counter:
+    """Phase 7 (b) and (c): ``launch.train.train`` at full width, the
+    checkpoint round trip, timed and profiled steps.  Returns the kernel
+    launches these runs must have made."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch import optim
+    from repro_torch.tree import tree_leaves
+    cuda = device.type == "cuda"
+    expected = collections.Counter()
+
+    def cfg_of(arch):
+        cfg = get_config(arch)
+        return reduced(cfg) if train["use_reduced"] else cfg
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    t_b = time.perf_counter()
+    cfg = cfg_of(train["arch"])
+    b, s, steps = train["batch"], train["seq"], train["steps"]
+    print(f"== phase 7 (b): train {cfg.name} ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
+          f"parameters) at "
+          f"({b}, {s}), {steps} steps, lr {train['lr']}, warmup "
+          f"{train['warmup']}, seed 0")
+    ckpt = workdir / "uninterrupted"
+    resumed = workdir / "resumed"
+    shutil.rmtree(workdir, ignore_errors=True)
+    tc = train_mod.TrainConfig(
+        arch=train["arch"], steps=steps, global_batch=b, seq_len=s,
+        lr=train["lr"], warmup=train["warmup"], ckpt_dir=str(ckpt),
+        ckpt_every=train["resume_at"], log_every=5,
+        use_reduced_config=train["use_reduced"], seed=0, device=str(device))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = train_mod.train(tc)
+    sync()
+    wall = time.perf_counter() - t0
+    hist = out["history"]
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda \
+        else None
+    print(f"  train(): {len(hist)} steps in {wall:.2f}s (set-up, planner, "
+          f"init and two checkpoint saves included); losses "
+          f"{hist[0]:.4f} -> {hist[-1]:.4f}, min of the last 5 "
+          f"{min(hist[-5:]):.4f}; peak device memory "
+          + (f"{peak:.2f} GiB" if peak is not None else "not measured"))
+    assert len(hist) == steps and all(np.isfinite(hist)), hist
+    assert min(hist[-5:]) < hist[0], hist
+    expected += _train_launches(cfg, steps)
+    # the checkpoint after step resume_at alone in a directory: resume it
+    k = train["resume_at"]
+    shutil.copytree(ckpt / f"step_{k:09d}", resumed / f"step_{k:09d}")
+    (resumed / "LATEST").write_text(f"step_{k:09d}")
+    shutil.rmtree(ckpt)
+    t0 = time.perf_counter()
+    out2 = train_mod.train(dataclasses.replace(tc,
+                                               ckpt_dir=str(resumed)))
+    sync()
+    h2 = out2["history"]
+    assert len(h2) == steps - k - 1, h2
+    expected += _train_launches(cfg, len(h2))
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(h2, hist[k + 1:]))
+    diffs = [(p2 - p1).abs() for p1, p2 in zip(
+        tree_leaves(out["state"].params), tree_leaves(out2["state"].params))]
+    worst = max(d.max().item() for d in diffs)
+    mean = sum(d.sum().item() for d in diffs) / sum(
+        p.abs().sum().item() for p in tree_leaves(out["state"].params))
+    print(f"  resumed from the step-{k} checkpoint ({k + 1} updates) for "
+          f"{len(h2)} steps in {time.perf_counter() - t0:.2f}s: losses "
+          f"{h2} against {hist[k + 1:]} (max rel diff {loss_err:.2e}); "
+          f"parameters max abs diff "
+          f"{worst:.3e}, mean |diff| / mean |param| {mean:.3e}")
+    assert loss_err <= RESUME_TOLS["loss"], (h2, hist[k + 1:])
+    assert worst <= 2 * train["lr"] and mean <= RESUME_TOLS["mean"], \
+        (worst, mean)
+    assert int(out2["state"].opt_state.step) == steps
+    del out2, diffs
+    shutil.rmtree(workdir, ignore_errors=True)
+    # timed steps on the run's state, then one profiled
+    model = build_model(cfg, device)
+    opt_cfg = optim.AdamWConfig(lr=train["lr"],
+                                warmup_steps=train["warmup"],
+                                total_steps=steps)
+    step_fn = train_mod.make_train_step(model, cfg, opt_cfg, False,
+                                        "none")
+    st = out["state"]
+    times = []
+    for i in range(train["timed"]):
+        batch = _batch(cfg, b, s, steps + i, device)
+        sync()
+        t1 = time.perf_counter()
+        st.params, st.opt_state, st.err_state, m = step_fn(
+            st.params, st.opt_state, st.err_state, batch)
+        float(m["loss"])
+        sync()
+        times.append(time.perf_counter() - t1)
+    step_s = sorted(times)[len(times) // 2]
+    plan = out["plan"]
+    print(f"  step time (median of {len(times)}, host clock after a "
+          f"synchronise): {step_s * 1e3:.2f} ms, {b * s / step_s:.1f} "
+          f"tokens/s; the planner's predicted step ({plan.strategy.name}, "
+          f"tpu_v5e template): {plan.predicted_step_s * 1e3:.2f} ms "
+          f"(measured / predicted {step_s / plan.predicted_step_s:.2f}, "
+          f"no limit)")
+    expected += _train_launches(cfg, len(times))
+    if cuda:
+        _profile_train_step(step_fn, out, cfg, b, s, device,
+                            steps + len(times))
+        expected += _train_launches(cfg, 1)
+    del out, st, step_fn
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"# phase 7 (b): {time.perf_counter() - t_b:.2f}s")
+    # (c) the recurrent families
+    for arch, ob, os_ in train["others"]:
+        ocfg = cfg_of(arch)
+        n = train["other_steps"]
+        print(f"== phase 7 (c): train {ocfg.name} ({ocfg.n_layers} layers, "
+              f"d_model {ocfg.d_model}) at ({ob}, {os_}), {n} steps")
+        t0 = time.perf_counter()
+        otc = train_mod.TrainConfig(
+            arch=arch, steps=n, global_batch=ob, seq_len=os_,
+            lr=train["lr"], warmup=train["warmup"], log_every=1,
+            use_reduced_config=train["use_reduced"], seed=0,
+            device=str(device))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        oout = train_mod.train(otc)
+        sync()
+        oh = oout["history"]
+        opeak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda \
+            else None
+        print(f"  {n} steps in {time.perf_counter() - t0:.2f}s (set-up "
+              f"and init included), losses "
+              f"{[round(x, 4) for x in oh]}, peak device memory "
+              + (f"{opeak:.2f} GiB" if opeak is not None
+                 else "not measured"))
+        assert len(oh) == n and all(np.isfinite(oh)), oh
+        expected += _train_launches(ocfg, n)
+        if cuda:
+            ostep = train_mod.make_train_step(
+                build_model(ocfg, device), ocfg,
+                optim.AdamWConfig(lr=train["lr"],
+                                  warmup_steps=train["warmup"],
+                                  total_steps=n), False, "none")
+            _profile_train_step(ostep, oout, ocfg, ob, os_, device, n)
+            expected += _train_launches(ocfg, 1)
+            del ostep
+        del oout
+        if cuda:
+            torch.cuda.empty_cache()
+        print(f"# phase 7 (c) {ocfg.name}: {time.perf_counter() - t0:.2f}s")
+    return expected
+
+
+def golden_weights(defs, seed: int = 0):
+    """A ParamDef tree (the port's or the reference's: the same leaves) as
+    float32 numpy drawn from ``default_rng(seed)`` leaf by leaf in sorted
+    key order, each leaf as its def says (zeros, ones, or a normal times
+    ``scale`` or 1/sqrt(fan_in)), the rule of ``tree_init``: the same
+    numbers on any machine, so no weights are stored."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def mk(d):
+        if d.init in ("zeros", "ones"):
+            return np.full(d.shape, d.init == "ones", np.float32)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
+        scale = d.scale if d.scale is not None else fan_in ** -0.5
+        return (rng.standard_normal(d.shape, np.float32)
+                * np.float32(scale)).astype(np.float32)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {key: walk(tree[key]) for key in sorted(tree)}
+        return mk(tree)
+
+    return walk(defs)
+
+
+def train_golden_port(arch: str, device, golden: dict = TRAIN_GOLDEN,
+                      batches=None) -> dict:
+    """The port's numbers for what tests/test_torch_golden_train.npz holds:
+    the reduced arch in float32, the first step's per-leaf gradient norms
+    (JAX's leaf order) and the loss of each of ``steps`` AdamW steps.
+    ``batches`` (tokens, labels: int32 (steps, batch, seq) numpy, the
+    file's) stand in for the data pipeline's, which they equal where
+    numpy draws the reference's stream."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dc.replace(reduced(get_config(arch)), dtype="float32")
+    model = build_model(cfg, device)
+    params = params_from_numpy(golden_weights(model.defs), device)
+    b, s = golden["batch"], golden["seq"]
+
+    def batch(i):
+        if batches is None:
+            return _batch(cfg, b, s, i, device)
+        return {key: torch.from_numpy(np.ascontiguousarray(val[i])).to(
+            device) for key, val in zip(("tokens", "labels"), batches)}
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss_fn(live, batch(0))
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    norms = np.array([torch.linalg.vector_norm(g).item() for g in grads],
+                     np.float32)
+    del live, grads
+    step = make_train_step(model, cfg, optim.AdamWConfig(
+        lr=golden["lr"], warmup_steps=golden["warmup"],
+        total_steps=golden["steps"]), False, "none")
+    state, losses = optim.init(params), []
+    for i in range(golden["steps"]):
+        params, state, _, m = step(params, state, None, batch(i))
+        losses.append(float(m["loss"]))
+    return {"losses": np.array(losses, np.float32), "grad_norms": norms}
+
+
+def golden_batches(arch: str, golden: dict = TRAIN_GOLDEN):
+    """The data pipeline's batches of the golden case on this machine:
+    (tokens, labels), int32 (steps, batch, seq)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data import DataConfig, synth_batch
+    cfg = reduced(get_config(arch))
+    got = [synth_batch(DataConfig(global_batch=golden["batch"],
+                                  seq_len=golden["seq"]), cfg, i)
+           for i in range(golden["steps"])]
+    return tuple(np.stack([g[key].numpy() for g in got])
+                 for key in ("tokens", "labels"))
+
+
+def hold_to_train_golden(got: dict, golden, arch: str,
+                         tols: dict = TRAIN_GOLDEN_TOLS) -> float:
+    """Each key at its rtol (a chaotic arch's losses after the first update
+    at CHAOTIC_LOSS_TOL); returns the worst relative error."""
+    import numpy as np
+    worst = 0.0
+    for key, val in got.items():
+        want = golden[f"{arch}/{key}"]
+        assert val.shape == want.shape, (arch, key, val.shape, want.shape)
+        rel = np.abs(val - want) / np.abs(want)
+        tol = np.full(rel.shape, tols[key])
+        if key == "losses" and arch in CHAOTIC_TRAIN:
+            tol[1:] = CHAOTIC_LOSS_TOL
+        assert bool((rel <= tol).all()), (arch, key, rel)
+        worst = max(worst, float(rel.max()))
+    return worst
+
+
+def phase_train_golden(device, golden: dict = TRAIN_GOLDEN) -> \
+        collections.Counter:
+    """Phase 7 (d): the reduced archs against the reference's numbers, on
+    the file's batches (the data pipeline's here, if this numpy draws the
+    reference's stream: printed)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    print(f"== phase 7 (d): the reduced models' training against "
+          f"{GOLDEN_TRAIN.name}")
+    expected = collections.Counter()
+    with np.load(GOLDEN_TRAIN) as f:
+        golden_file = dict(f)
+    for arch in golden["archs"]:
+        batches = tuple(golden_file[f"{arch}/{key}"]
+                        for key in ("tokens", "labels"))
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(golden_batches(arch, golden), batches))
+        got = train_golden_port(arch, device, golden, batches)
+        worst = hold_to_train_golden(got, golden_file, arch)
+        print(f"  {arch}: {golden['steps']} losses "
+              f"{[round(float(x), 5) for x in got['losses']]} and "
+              f"{len(got['grad_norms'])} gradient norms, worst rel err "
+              f"{worst:.2e}; the data pipeline here "
+              + ("gives the file's batches byte for byte" if same else
+                 f"draws other batches than the file's (numpy "
+                 f"{np.__version__})"))
+        expected += _train_launches(reduced(get_config(arch)),
+                                    golden["steps"] + 1)
+    return expected
+
+
+def remat_grads(arch: str, device, remat, batch: int, seq: int):
+    """One step of the reduced ``arch`` in float32 on `golden_weights` and
+    the data pipeline's first batch under ``remat``: (loss, every leaf's
+    gradient, the kernel launches it made)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import flash_attention, mlstm, rglru
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dc.replace(reduced(get_config(arch)), dtype="float32")
+    model = build_model(cfg, device)
+    live = tree_map(lambda p: p.requires_grad_(True), params_from_numpy(
+        golden_weights(model.defs), device))
+    mods = {"flash_attention": flash_attention, "rglru_scan": rglru,
+            "mlstm_parallel": mlstm}
+    before = {name: mod.LAUNCHES for name, mod in mods.items()}
+    loss, _ = model.loss_fn(live, _batch(cfg, batch, seq, 0, device),
+                            remat=remat)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return float(loss.detach()), grads, collections.Counter(
+        {name: mod.LAUNCHES - before[name] for name, mod in mods.items()})
+
+
+def phase_remat(device, remat_cfg: dict = REMAT) -> collections.Counter:
+    """Phase 7 (e): remat True and ``"dots"`` against no remat, each
+    reduced arch, through the kernels' Functions on the card (`REMAT`).
+    Returns the kernel launches these steps must have made."""
+    from repro_torch.configs.base import get_config, reduced
+    print("== phase 7 (e): remat through the kernels' Functions")
+    expected = collections.Counter()
+    b, s = remat_cfg["batch"], remat_cfg["seq"]
+    for arch in remat_cfg["archs"]:
+        cfg = reduced(get_config(arch))
+        base_loss, base, _ = remat_grads(arch, device, False, b, s)
+        expected += _train_launches(cfg, 1)
+        for remat in (True, "dots"):
+            loss, grads, launches = remat_grads(arch, device, remat, b, s)
+            want = _train_launches(cfg, 1, remat)
+            if device.type == "cuda":
+                assert launches == want, (arch, remat, launches, want)
+            expected += want
+            loss_err = abs(loss - base_loss) / abs(base_loss)
+            worst = 0.0
+            for g, w in zip(grads, base):
+                err = (g - w).abs().max().item()
+                scale = w.abs().max().item()
+                assert err <= REMAT_TOLS["grad"] * scale, (arch, remat, err,
+                                                           scale)
+                worst = max(worst, err / scale if scale else 0.0)
+            assert loss_err <= REMAT_TOLS["loss"], (arch, remat, loss,
+                                                    base_loss)
+            print(f"  {cfg.name} ({b}, {s}) remat={remat!r}: loss rel diff "
+                  f"{loss_err:.2e}, {len(grads)} gradients within "
+                  f"{worst:.2e} of max |grad| of no remat's, kernel "
+                  f"launches {dict(sorted(launches.items()))} (expected "
+                  f"{dict(sorted(want.items()))} on the card)")
+    return expected
+
+
 def _device_profile(fn, n: int, what: str):
     """``fn()`` under torch.profiler (CPU + CUDA): prints wall time and
     device-busy time per each of its ``n`` units of ``what``, the idle
-    share and the kernels by device time.  Returns the device-busy us and
-    the device us per kernel name, or None where the profiler recorded no
-    device time."""
+    share and the kernels by device time.  Returns the device-busy us, the
+    device us per kernel name and, per ``repro_torch::`` range (the kernel
+    Functions' backwards), [device us of its kernels, ranges], or None
+    where the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1695,9 +2246,21 @@ def _device_profile(fn, n: int, what: str):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    # the Functions' backward ranges are not kernels: each host-side range
+    # is read apart, as the device time of the kernels launched inside it
+    # (the averaged key would add the device-side range's span, idle gaps
+    # included)
+    spans = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.name.startswith("repro_torch::") and \
+                "CPU" in str(e.device_type):
+            spans[e.name][0] += e.device_time_total
+            spans[e.name][1] += 1
+    kernels = [e for e in events
                if getattr(e, "device_type", None) is not None
-               and "CUDA" in str(e.device_type)]
+               and "CUDA" in str(e.device_type)
+               and not e.key.startswith("repro_torch::")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         print(f"  profiled {what}: the profiler recorded no device time "
@@ -1715,7 +2278,8 @@ def _device_profile(fn, n: int, what: str):
         print(f"    {e.self_device_time_total / n / 1e3:8.4f} ms "
               f"({e.self_device_time_total / busy_us * 100:4.1f} %) "
               f"{e.count / n:6.1f} launches  {e.key[:90]}")
-    return busy_us, {e.key: e.self_device_time_total for e in kernels}
+    return busy_us, {e.key: e.self_device_time_total for e in kernels}, \
+        spans
 
 
 def _profile_decode(model, params, serve_kw: dict, device) -> int:
@@ -1770,13 +2334,41 @@ def _check_launches(mods: dict, expected: dict, device, what: str) -> dict:
     return got
 
 
-def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
-        check_len: int, recurrent: dict, steps: int = 80,
-        starts: int = 6, search: dict = SEARCH,
-        runner: dict = RUNNER, deepflow: dict = DEEPFLOW) -> list:
-    """Phases 2-6; returns the per-kernel result objects.  ``cases`` maps
-    each kernel to its (compared, timed) cases."""
+def _model_point_launches(spec) -> collections.Counter:
+    """Kernel launches of the suite's model-step points: a prefill runs
+    every layer's kernel once, a decode step only attention's (the
+    recurrences decode with plain tensor ops), a train step forward and
+    backward (`_train_launches`); each point warmup + reps times."""
     from repro_torch.configs.base import get_config, reduced
+    per_point = max(spec.warmup, 1) + max(spec.reps, 1)
+    out = collections.Counter()
+    for arch in spec.model_archs:
+        cfg = reduced(get_config(arch))
+        kinds = collections.Counter(cfg.block_kind(i)
+                                    for i in range(cfg.n_layers))
+        for phase in spec.model_phases:
+            if phase == "train_step":
+                out += _train_launches(cfg, per_point)
+            elif phase == "prefill":
+                out += collections.Counter({
+                    "flash_attention": kinds["attn"] * per_point,
+                    "rglru_scan": kinds["rglru"] * per_point,
+                    "mlstm_parallel": kinds["mlstm"] * per_point})
+            else:
+                out["flash_attention"] += kinds["attn"] * per_point
+    return out
+
+
+def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
+        check_len: int, recurrent: dict, steps: int = 40,
+        starts: int = 2, search: dict = SEARCH,
+        runner: dict = RUNNER, deepflow: dict = DEEPFLOW,
+        train: dict = TRAIN) -> list:
+    """Phases 2-7; returns the per-kernel result objects.  ``cases`` maps
+    each kernel to its (compared, timed) cases.  ``steps`` x ``starts`` is
+    the fit's depth, cut from 80 x 6 since the suite's nine model-step
+    points of three archs made each of its evaluations ~5x costlier on
+    the card (a launch-bound autograd loop)."""
     print("== phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
     phases = {"gemm": phase_gemm, "flash_attention": phase_attention,
@@ -1801,12 +2393,10 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     t4 = time.perf_counter()
     print(f"# phase 5: {t4 - t3:.2f}s")
     per_point = max(spec.warmup, 1) + max(spec.reps, 1)
-    model_layers = sum(reduced(get_config(a)).n_layers
-                       for a in spec.model_archs)
-    launches = _check_launches(mods, {
+    expected = _model_point_launches(spec) + collections.Counter({
         "gemm": len(spec.pallas_shapes) * per_point,
-        "flash_attention": model_layers * len(spec.model_phases) * per_point
-        + serve_launches}, device, "phases 3-5")
+        "flash_attention": serve_launches})
+    launches = _check_launches(mods, expected, device, "phases 3-5")
     # this slice's path: the recurrent families
     mods = _reset_launches()
     expected = phase_recurrent(device, recurrent)
@@ -1815,8 +2405,23 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     if device.type == "cuda":
         for name in ("rglru_scan", "mlstm_parallel"):
             assert more[name] > 0, f"phase 6 never launched {name}"
-    return [_row(name, launches[name] + more[name], results[name])
-            for name in KERNELS]
+    # this slice's path: training
+    t5 = time.perf_counter()
+    phase_grads(device, train["grads"])
+    t6 = time.perf_counter()
+    print(f"# phase 7 (a): {t6 - t5:.2f}s")
+    mods = _reset_launches()
+    expected = phase_train(device, train,
+                           workdir.parent / f"{workdir.name}-train")
+    expected += phase_train_golden(device)
+    expected += phase_remat(device, train["remat"])
+    print(f"# phase 7: {time.perf_counter() - t5:.2f}s")
+    trained = _check_launches(mods, expected, device, "phase 7 (b)-(e)")
+    if device.type == "cuda":
+        for name in ("flash_attention", "rglru_scan", "mlstm_parallel"):
+            assert trained[name] > 0, f"phase 7 never launched {name}"
+    return [_row(name, launches[name] + more[name] + trained[name],
+                 results[name]) for name in KERNELS]
 
 
 def main() -> int:

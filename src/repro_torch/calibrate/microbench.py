@@ -16,8 +16,10 @@ unless the caller asks for the CPU:
   decode_step  one-token ``Model.decode_step`` over a full KV cache at
                smoke size — the KV-cache-read-bound step that anchors the
                model's main-memory bandwidth path
-  collective / train_step
-               not in the port yet: measuring one raises
+  train_step   the gradient of ``Model.loss_fn`` at smoke size, no
+               optimizer (the reference's ``jax.grad(loss)``): the kernels
+               forward, their autograd Functions backward
+  collective   not in the port yet: measuring one raises
                NotImplementedError naming the ROADMAP item that brings it
 
 Measurements stream to ``measurements.jsonl`` with the sweep runner's
@@ -116,12 +118,13 @@ def default_spec(suite: str = "quick", reps: int = 3) -> MeasureSpec:
            bandwidth, and kernel overhead.
     full   the reference's full suite (adds the hand-written GEMM,
            elementwise probes, collectives and model-family steps; the
-           last two are not in this slice of the port and raise).
+           collectives are not in the port yet and raise).
     slice  what the port runs on the card: the quick GEMMs through
            cuBLAS, the same shapes plus the full-width qwen1.5-0.5b layer
            GEMMs through the hand-written kernel, bandwidth probes, and
-           the qwen1.5-0.5b prefill and decode steps at smoke size (the
-           hand-written flash-attention kernel).
+           the prefill, decode and train steps of qwen1.5-0.5b,
+           recurrentgemma-2b and xlstm-125m at smoke size (the
+           flash-attention, scan and mLSTM kernels).
     """
     gemm = tuple(
         (m, n, k)
@@ -144,8 +147,10 @@ def default_spec(suite: str = "quick", reps: int = 3) -> MeasureSpec:
             suite="slice", gemm_shapes=gemm,
             pallas_shapes=gemm + QWEN_LAYER_SHAPES,
             elementwise_sizes=(1 << 16, 1 << 20, 1 << 23),
-            model_archs=("qwen1.5-0.5b",),
-            model_phases=("prefill", "decode_step"), model_seq=128,
+            model_archs=("qwen1.5-0.5b", "recurrentgemma-2b",
+                         "xlstm-125m"),
+            model_phases=("prefill", "decode_step", "train_step"),
+            model_seq=128,
             model_batch=2, reps=reps)
     raise ValueError(f"unknown suite {suite!r}; expected quick|full|slice")
 
@@ -324,6 +329,23 @@ def _measure_decode(pt: MeasurePoint, spec: MeasureSpec,
             "t_s": best, "t_mean_s": mean}
 
 
+def _measure_train_step(pt: MeasurePoint, spec: MeasureSpec,
+                        device: torch.device) -> Dict:
+    """The gradient of the loss over (batch, seq) zero tokens (labels the
+    tokens), no optimizer, as the reference's ``jax.grad(loss)``: forward
+    and backward through the kernels' autograd Functions."""
+    from repro_torch.tree import tree_leaves
+    _, model, params, seq, batch = _smoke_model(pt, device)
+    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+    batch_d = {"tokens": tokens, "labels": tokens}
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    best, mean = _time_fn(
+        lambda: torch.autograd.grad(model.loss_fn(params, batch_d)[0],
+                                    leaves),
+        spec.warmup, spec.reps, device)
+    return {"flops": 0.0, "bytes": 0.0, "t_s": best, "t_mean_s": mean}
+
+
 def _not_ported(what: str) -> Callable:
     def measure(pt: MeasurePoint, spec: MeasureSpec, device) -> Dict:
         raise NotImplementedError(
@@ -339,9 +361,7 @@ _MEASURERS: Dict[str, Callable[[MeasurePoint, MeasureSpec, torch.device],
     "elementwise": _measure_elementwise,
     "collective": _not_ported("ROADMAP queue 1 item 9 "
                               "(parallel/collectives.py as NCCL)"),
-    "train_step": _not_ported("the training slice of the port (backward "
-                              "kernels, optim/adamw.py; ROADMAP queue 1 "
-                              "item 9)"),
+    "train_step": _measure_train_step,
     "prefill": _measure_prefill,
     "decode_step": _measure_decode,
 }

@@ -30,10 +30,9 @@ rows and hardware give the reference's records bit for bit.
 reference's over tensors (its array module ``xp`` is `tensors.XP`);
 `Scenario.frontier_fold` (the device-resident streaming frontier, ROADMAP
 queue 1 item 11) is not ported yet and raises ``NotImplementedError``.
-The checkpoint and failure timings
-the goodput objective reads (``repro.checkpoint.manager``,
-``repro.runtime.fault`` in the reference) are copied below, as the
-functions this module needs.
+The checkpoint and failure timings the goodput objective reads come from
+the port's `repro_torch.checkpoint.manager` and `repro_torch.runtime.fault`,
+as the reference's come from its modules of those names.
 """
 
 from __future__ import annotations
@@ -45,6 +44,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.checkpoint import manager as ckpt_manager
 from repro_torch.configs.base import ArchConfig, SHAPE_CELLS, get_config
 from repro_torch.core import lmgraph, simulate, traffic
 from repro_torch.core import objectives as objectives_lib
@@ -54,6 +54,7 @@ from repro_torch.core.parallelism import Strategy
 from repro_torch.core.pathfinder import EvalPoint
 from repro_torch.core.placement import SystemGraph
 from repro_torch.core.tensors import XP, div
+from repro_torch.runtime import fault
 
 DTYPE_BYTES = 2                     # bf16 weights / KV cache
 
@@ -284,15 +285,15 @@ class Scenario:
         per_param = 12.0 if self.objective_kind == "step" \
             else float(DTYPE_BYTES)
         ckpt_bytes = float(cfg.param_count()) * per_param
-        write_s = _checkpoint_io_s(ckpt_bytes, devices,
-                                   p["ckpt_write_gbps"])
-        restore_s = _checkpoint_io_s(ckpt_bytes, devices,
-                                     p["ckpt_read_gbps"])
-        mtbf = _fleet_mtbf_s(p["device_mtbf_s"], devices)
+        write_s = ckpt_manager.checkpoint_write_s(
+            ckpt_bytes, devices, p["ckpt_write_gbps"])
+        restore_s = ckpt_manager.checkpoint_restore_s(
+            ckpt_bytes, devices, p["ckpt_read_gbps"])
+        mtbf = fault.fleet_mtbf_s(p["device_mtbf_s"], devices)
         if self.objective_kind == "step":
-            frac = _goodput_fraction(write_s, restore_s, mtbf)
+            frac = fault.goodput_fraction(write_s, restore_s, mtbf)
         else:
-            frac = _availability(restore_s, mtbf)
+            frac = fault.availability(restore_s, mtbf)
         p.update({"devices": devices, "goodput_fraction": frac,
                   "ckpt_write_s": write_s, "ckpt_restore_s": restore_s,
                   "fleet_mtbf_s": mtbf})
@@ -922,57 +923,6 @@ class ServingTrafficScenario(ServingScenario):
                 "base_tokens_per_s": np.array(
                     [r["tokens_per_s"] for r in recs], dtype=np.float64)}
         return self._wrap_metrics_fold(fold, cfg, strategy, units)
-
-
-# ---------------------------------------------------------------------------
-# Checkpoint and failure timings of the goodput objective (the reference's
-# `repro.checkpoint.manager.checkpoint_write_s` / `checkpoint_restore_s` and
-# `repro.runtime.fault.fleet_mtbf_s` / `availability` / `goodput_fraction`,
-# line for line; the port has neither module yet)
-# ---------------------------------------------------------------------------
-
-
-def _checkpoint_io_s(total_bytes: float, n_devices: float,
-                     gbps_per_device: float) -> float:
-    """Modeled wall-clock of one checkpoint save or restore: leaves move in
-    parallel across the fleet, each device its own shard, over the
-    per-device storage bandwidth."""
-    return float(total_bytes) / max(float(n_devices), 1.0) \
-        / (float(gbps_per_device) * 1e9)
-
-
-def _fleet_mtbf_s(device_mtbf_s: float, n_devices: float) -> float:
-    """Mean time between failures of the whole fleet (independent fails)."""
-    return float(device_mtbf_s) / max(float(n_devices), 1.0)
-
-
-def _availability(restore_s: float, mtbf_s: float) -> float:
-    """Steady-state availability: fraction of wall-clock spent serving.
-
-    Each failure costs one restore; serving has no checkpoint-write tax
-    (state is reconstructible), so goodput derates by MTBF/(MTBF+restore).
-    """
-    return float(mtbf_s) / max(float(mtbf_s) + float(restore_s), 1e-30)
-
-
-def _goodput_fraction(write_s: float, restore_s: float,
-                      mtbf_s: float) -> float:
-    """Fraction of wall-clock doing useful training work under failures.
-
-    Young's optimal checkpoint interval T = sqrt(2 * write * MTBF): the
-    fleet loses `write_s` per interval to checkpointing and, per failure
-    (rate 1/MTBF), half an interval of lost work plus a restore.  With
-    write_s == 0 this degrades to the serving `_availability` model.
-    Clipped to [0, 1].
-    """
-    write_s = max(float(write_s), 0.0)
-    mtbf_s = max(float(mtbf_s), 1e-30)
-    if write_s <= 0.0:
-        return _availability(restore_s, mtbf_s)
-    interval = (2.0 * write_s * mtbf_s) ** 0.5
-    frac = ((1.0 - write_s / interval)
-            * (1.0 - (interval / 2.0 + float(restore_s)) / mtbf_s))
-    return min(max(frac, 0.0), 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ source or header is rebuilt and an unchanged one is loaded as it is.
 Nothing is built at import: the first call that
 needs a library builds it; `build` builds several at once, one ``nvcc``
 process per source, all started together.  `refuse_autograd` is the check
-every wrapper makes before it launches: the kernels have no backward yet;
+the GEMM's wrapper makes before it launches: the GEMM has no backward
+(nothing trains through it; the other wrappers are autograd Functions);
 `check_aligned` the one the bf16 tensor-core kernels' wrappers add.
 """
 
@@ -105,13 +106,13 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
-    """Raise where a kernel's output would need a gradient: the kernels
-    write into fresh tensors through ctypes, so autograd would lose every
-    gradient through them without a word."""
+    """Raise where a kernel without a backward would need one: it writes
+    into a fresh tensor through ctypes, so autograd would lose every
+    gradient through it without a word."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP queue 1 "
-            f"item 9); call it under torch.no_grad() or on tensors that do "
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP queue 2 "
+            f"item 6); call it under torch.no_grad() or on tensors that do "
             f"not require grad")
 
 

@@ -13,6 +13,12 @@ no other path.  bf16 runs on the tensor cores (``mma.sync``), f32 on FFMA;
 each kernel picks its own tiles, so ``block_q`` / ``block_kv`` are
 validated and do not change the output.  `LAUNCHES` counts kernel
 launches: it rises by one where the kernel is launched and nowhere else.
+
+On the card the kernel is differentiable (`FlashAttention`): its forward
+is the kernel, its backward the gradient of `attention_ref` recomputed
+from the saved q, k and v (the function the reference's training path
+differentiates), which holds one (b, h, sq, skv) float32 score matrix and
+its gradient at a time.  A backward kernel is ROADMAP queue 2 item 6.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ HEAD_DIMS = (32, 64, 128, 256)
 _MAX_BATCH_HEADS = 65535        # grid.y limit
 
 LAUNCHES = 0                    # kernel launches since the last reset
+# the profiler's range around the backward
+BACKWARD_SPAN = "repro_torch::flash_attention_backward"
 
 
 def reset_launches() -> None:
@@ -92,42 +100,12 @@ def _check(q, k, v, window, block_q, block_kv, q_offset, kv_len):
                          f"got {kv_len!r}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None,
-                    block_q: int = 128, block_kv: int = 128,
-                    scale: Optional[float] = None, q_offset: int = 0,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (b, h, sq, d); k/v: (b, h_kv, skv, d) with h % h_kv == 0.
-
-    Returns (b, h, sq, d) in q's dtype.  ``window``: keys with q_pos - k_pos
-    >= window are masked; ``q_offset``: absolute position of q[0];
-    ``kv_len``: keys at positions >= kv_len are masked.  Head dims 32, 64,
-    128, 256; float32 or bfloat16.  CUDA tensors launch the Hopper kernel on the
-    current stream or raise (bf16 ones must start 16-byte aligned, with
-    strides that are multiples of 8; inputs that require grad raise under
-    grad mode: the kernel has no backward yet); CPU tensors take
-    `attention_ref`.  The CUDA output is laid out (b, sq, h, d) in memory
-    (a transposed view), which is the layout the output projection reads.
-    """
+def _launch(q, k, v, causal, window, scale, q_offset, kv_len):
+    """One launch of the kernel on the current stream; returns the
+    (b, h, sq, d) output, laid out (b, sq, h, d) in memory."""
     global LAUNCHES
-    _check(q, k, v, window, block_q, block_kv, q_offset, kv_len)
     b, h, sq, d = q.shape
     _, h_kv, skv, _ = k.shape
-    scale = float(scale) if scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale, q_offset=q_offset, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v need unit stride over "
-                         "the head dim")
-    if b * h > _MAX_BATCH_HEADS:
-        raise ValueError(f"flash_attention: batch x heads = {b * h} exceeds "
-                         f"the kernel's grid ({_MAX_BATCH_HEADS})")
-    if q.dtype == torch.bfloat16:
-        build.check_aligned("flash_attention", q=q, k=k, v=v)
-    build.refuse_autograd("flash_attention", q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(
@@ -147,3 +125,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({lib.repro_cuda_error_string(rc).decode()})")
     LAUNCHES += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes `attention_ref` from the
+    saved q, k, v under autograd and returns its gradients (in the inputs'
+    dtypes)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, scale=scale,
+                        q_offset=q_offset, kv_len=kv_len)
+        return _launch(q, k, v, causal, window, scale, q_offset, kv_len)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.profiler.record_function(BACKWARD_SPAN):
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+            with torch.enable_grad():
+                out = attention_ref(*ins, **ctx.args)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, grad))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None, None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = 128, block_kv: int = 128,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (b, h, sq, d); k/v: (b, h_kv, skv, d) with h % h_kv == 0.
+
+    Returns (b, h, sq, d) in q's dtype.  ``window``: keys with q_pos - k_pos
+    >= window are masked; ``q_offset``: absolute position of q[0];
+    ``kv_len``: keys at positions >= kv_len are masked.  Head dims 32, 64,
+    128, 256; float32 or bfloat16.  CUDA tensors launch the Hopper kernel
+    on the current stream or raise (bf16 ones must start 16-byte aligned,
+    with strides that are multiples of 8), through `FlashAttention`, whose
+    backward recomputes the plain version; CPU tensors take
+    `attention_ref`.  The CUDA output is laid out (b, sq, h, d) in memory
+    (a transposed view), which is the layout the output projection reads.
+    """
+    _check(q, k, v, window, block_q, block_kv, q_offset, kv_len)
+    b, h, sq, d = q.shape
+    scale = float(scale) if scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, q_offset=q_offset, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v need unit stride over "
+                         "the head dim")
+    if b * h > _MAX_BATCH_HEADS:
+        raise ValueError(f"flash_attention: batch x heads = {b * h} exceeds "
+                         f"the kernel's grid ({_MAX_BATCH_HEADS})")
+    if q.dtype == torch.bfloat16:
+        build.check_aligned("flash_attention", q=q, k=k, v=v)
+    return FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
+                                kv_len)

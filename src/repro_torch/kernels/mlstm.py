@@ -14,6 +14,12 @@ wrapper raises), f32 on FFMA (``mlstm_kernel``).  Each kernel picks its
 own tiles, so ``block_q`` / ``block_kv`` are validated and do not change
 the output.  `LAUNCHES` counts kernel launches: it rises by one where the
 kernel is launched and nowhere else.
+
+On the card the kernel is differentiable (`MLSTMParallel`): its forward is
+the kernel, its backward the gradient of `mlstm_parallel_ref` recomputed
+from the saved inputs, to q, k, v, ``f_cum`` and ``log_i`` (the function
+the reference's training path differentiates, ``_mlstm_parallel``).  A
+backward kernel is ROADMAP queue 2 item 6.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ HEAD_DIMS = (32, 64, 128, 192)
 _MAX_BATCH_HEADS = 65535        # grid.y limit
 
 LAUNCHES = 0                    # kernel launches since the last reset
+# the profiler's range around the backward
+BACKWARD_SPAN = "repro_torch::mlstm_parallel_backward"
 
 
 def reset_launches() -> None:
@@ -85,35 +93,11 @@ def _check(q, k, v, f_cum, log_i, block_q, block_kv):
             raise ValueError(f"mlstm_parallel: bad {name} {val!r}")
 
 
-def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   f_cum: torch.Tensor, log_i: torch.Tensor,
-                   block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
-    """q/k/v: (b, h, s, d); f_cum (cumsum of log f) and log_i: (b, h, s).
-
-    Returns (b, h, s, d) in q's dtype.  Head dims 32, 64, 128, 192; any s;
-    float32 or bfloat16 q, k, v (f_cum and log_i are read in float32).
-    CUDA tensors launch the Hopper kernel on the current stream or raise
-    (bf16 ones must start 16-byte aligned, with strides that are multiples
-    of 8); CPU tensors take `mlstm_parallel_ref`.  The CUDA output is laid
-    out (b, s, h, d) in memory (a transposed view), the layout the block's
-    output projection reads.
-    """
+def _launch(q, k, v, f_cum, log_i):
+    """One launch of the kernel on the current stream; returns the
+    (b, h, s, d) output, laid out (b, s, h, d) in memory."""
     global LAUNCHES
-    _check(q, k, v, f_cum, log_i, block_q, block_kv)
     b, h, s, d = q.shape
-    if q.device.type == "cpu":
-        return mlstm_parallel_ref(q, k, v, f_cum, log_i)
-    if q.device.type != "cuda":
-        raise ValueError(f"mlstm_parallel: unsupported device {q.device}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("mlstm_parallel: q, k, v need unit stride over the "
-                         "head dim")
-    if b * h > _MAX_BATCH_HEADS:
-        raise ValueError(f"mlstm_parallel: batch x heads = {b * h} exceeds "
-                         f"the kernel's grid ({_MAX_BATCH_HEADS})")
-    if q.dtype == torch.bfloat16:
-        build.check_aligned("mlstm_parallel", q=q, k=k, v=v)
-    build.refuse_autograd("mlstm_parallel", q, k, v, f_cum, log_i)
     f_cum, log_i = f_cum.float(), log_i.float()
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
@@ -134,3 +118,56 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{rc} ({lib.repro_cuda_error_string(rc).decode()})")
     LAUNCHES += 1
     return out
+
+
+class MLSTMParallel(torch.autograd.Function):
+    """The kernel forward; the backward recomputes `mlstm_parallel_ref`
+    from the saved inputs under autograd and returns its gradients (in the
+    inputs' dtypes)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, f_cum, log_i):
+        ctx.save_for_backward(q, k, v, f_cum, log_i)
+        return _launch(q, k, v, f_cum, log_i)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.profiler.record_function(BACKWARD_SPAN):
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            with torch.enable_grad():
+                out = mlstm_parallel_ref(*ins)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, grad))
+        return tuple(next(grads) if t.requires_grad else None for t in ins)
+
+
+def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   f_cum: torch.Tensor, log_i: torch.Tensor,
+                   block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """q/k/v: (b, h, s, d); f_cum (cumsum of log f) and log_i: (b, h, s).
+
+    Returns (b, h, s, d) in q's dtype.  Head dims 32, 64, 128, 192; any s;
+    float32 or bfloat16 q, k, v (f_cum and log_i are read in float32).
+    CUDA tensors launch the Hopper kernel on the current stream or raise
+    (bf16 ones must start 16-byte aligned, with strides that are multiples
+    of 8), through `MLSTMParallel`, whose backward recomputes the plain
+    version; CPU tensors take `mlstm_parallel_ref`.  The CUDA output is
+    laid out (b, s, h, d) in memory (a transposed view), the layout the
+    block's output projection reads.
+    """
+    _check(q, k, v, f_cum, log_i, block_q, block_kv)
+    b, h, s, d = q.shape
+    if q.device.type == "cpu":
+        return mlstm_parallel_ref(q, k, v, f_cum, log_i)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_parallel: unsupported device {q.device}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("mlstm_parallel: q, k, v need unit stride over the "
+                         "head dim")
+    if b * h > _MAX_BATCH_HEADS:
+        raise ValueError(f"mlstm_parallel: batch x heads = {b * h} exceeds "
+                         f"the kernel's grid ({_MAX_BATCH_HEADS})")
+    if q.dtype == torch.bfloat16:
+        build.check_aligned("mlstm_parallel", q=q, k=k, v=v)
+    return MLSTMParallel.apply(q, k, v, f_cum, log_i)

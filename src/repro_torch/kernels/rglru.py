@@ -17,6 +17,11 @@ and the element-wise kernel for shapes the 16-byte copies cannot take.
 the reference's and recorded in `LAST_BLOCK_T`, and does not change the
 output.  `LAUNCHES` counts kernel launches: it rises by one where a kernel
 is launched and nowhere else.
+
+On the card the scan is differentiable (`RGLRUScan`): the adjoint of a
+first-order linear recurrence is the same recurrence run backward, so the
+backward launches the same kernel once more, on reversed inputs.  A
+forward and its backward are two launches.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ RING, ELEMENTWISE = "ring", "elementwise"
 _VARIANT_CODES = {ELEMENTWISE: 0, RING: 1}
 
 LAUNCHES = 0                    # kernel launches since the last reset
+# the profiler's range around the backward
+BACKWARD_SPAN = "repro_torch::rglru_scan_backward"
 LAST_BLOCK_T: Optional[int] = None
 LAST_VARIANT: Optional[str] = None  # the last launch's; None on the host
 
@@ -85,6 +92,75 @@ def kernel_variant(a: torch.Tensor, b: torch.Tensor) -> str:
     return ELEMENTWISE
 
 
+def _launch(a: torch.Tensor, b: torch.Tensor,
+            h0: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel's `kernel_variant` on the current stream:
+    a, b contiguous CUDA tensors of one dtype; returns float32 h."""
+    global LAUNCHES, LAST_VARIANT
+    batch, seq, width = a.shape
+    h0 = h0.to(torch.float32).contiguous()
+    out = torch.empty((batch, seq, width), dtype=torch.float32,
+                      device=a.device)
+    variant = kernel_variant(a, b)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                                  out.data_ptr(), batch, seq, width,
+                                  _DTYPE_CODES[a.dtype],
+                                  _VARIANT_CODES[variant], stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan {variant} kernel launch failed: CUDA "
+                           f"error {rc} "
+                           f"({lib.repro_cuda_error_string(rc).decode()})")
+    LAUNCHES += 1
+    LAST_VARIANT = variant
+    return out
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The kernel for CUDA tensors, `rglru_scan_ref` for CPU ones."""
+    if a.device.type == "cpu":
+        return rglru_scan_ref(a, b, h0)
+    return _launch(a, b, h0)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """h = scan(a, b, h0) with the reversed scan as its backward.
+
+    With c_t = dL/dh_t + a_{t+1} c_{t+1} (c_T = dL/dh_T), the gradients are
+    db = c, da = c h_{t-1} (h_{-1} = h0) and dh0 = a_0 c_0; c is the same
+    recurrence over the reversed sequence, multipliers a_{t+1} (0 past the
+    end) and a zero initial state: one more launch of the kernel (of
+    `rglru_scan_ref` for CPU tensors, where the tests run it)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _scan(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        ctx.dtypes = (b.dtype,)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h0, h = ctx.saved_tensors
+        da = db = dh0 = None
+        with torch.profiler.record_function(BACKWARD_SPAN):
+            a32 = a.float()
+            mult = torch.cat([a32[:, 1:], torch.zeros_like(a32[:, :1])],
+                             dim=1)
+            c = _scan(mult.flip(1), g.float().flip(1),
+                      torch.zeros_like(h0, dtype=torch.float32)).flip(1)
+            if ctx.needs_input_grad[0]:
+                prev = torch.cat([h0.float()[:, None], h[:, :-1]], dim=1)
+                da = (c * prev).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                db = c.to(ctx.dtypes[0])
+            if ctx.needs_input_grad[2]:
+                dh0 = (a32[:, 0] * c[:, 0]).to(h0.dtype)
+        return da, db, dh0
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
                block_t: int = 128) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t, h_0 given.
@@ -92,9 +168,10 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     a/b: (batch, seq, width), float32 or bfloat16 (one dtype); h0: (batch,
     width), float32 or bfloat16.  Returns float32 (batch, seq, width).
     CUDA tensors launch the `kernel_variant` of the Hopper kernel on the
-    current stream or raise; CPU tensors take `rglru_scan_ref`.
+    current stream or raise, through `RGLRUScan` (whose backward launches
+    the kernel again, reversed); CPU tensors take `rglru_scan_ref`.
     """
-    global LAUNCHES, LAST_BLOCK_T, LAST_VARIANT
+    global LAST_BLOCK_T, LAST_VARIANT
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
         raise ValueError(f"rglru_scan takes a and b of one (batch, seq, "
                          f"width) shape, got {tuple(a.shape)} and "
@@ -124,22 +201,4 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     if batch > _MAX_BATCH:
         raise ValueError(f"rglru_scan: batch {batch} exceeds the kernel's "
                          f"grid ({_MAX_BATCH})")
-    build.refuse_autograd("rglru_scan", a, b, h0)
-    h0 = h0.to(torch.float32).contiguous()
-    out = torch.empty((batch, seq, width), dtype=torch.float32,
-                      device=a.device)
-    variant = kernel_variant(a, b)
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-                                  out.data_ptr(), batch, seq, width,
-                                  _DTYPE_CODES[a.dtype],
-                                  _VARIANT_CODES[variant], stream)
-    if rc != 0:
-        raise RuntimeError(f"rglru_scan {variant} kernel launch failed: CUDA "
-                           f"error {rc} "
-                           f"({lib.repro_cuda_error_string(rc).decode()})")
-    LAUNCHES += 1
-    LAST_VARIANT = variant
-    return out
+    return RGLRUScan.apply(a, b, h0)

@@ -20,13 +20,14 @@ and by activations: batch, act_seq, act_embed, act_heads.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.tree import tree_map
 from repro_torch.kernels.ref import NEG_INF
 
 # ---------------------------------------------------------------------------
@@ -47,13 +48,6 @@ class ParamDef:
 
 def is_def(x) -> bool:
     return isinstance(x, ParamDef)
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` over the leaves of a nested dict, same structure back."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, val) for key, val in tree.items()}
-    return fn(tree)
 
 
 def tree_init(defs, seed: int = 0, dtype: torch.dtype = torch.float32,

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.common import tree_map
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:

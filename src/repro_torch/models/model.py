@@ -1,5 +1,9 @@
-"""Unified model API: `build_model(cfg, device)` -> `Model` with init / loss /
-forward / prefill / init_cache / decode_step, as ``repro.models.model``.
+"""Unified model API: `build_model(cfg, device)` -> `Model` with init /
+``loss_fn(params, batch, remat=False)`` / forward / prefill / init_cache /
+decode_step, as ``repro.models.model``.  The loss is differentiable on the
+card (the kernels are autograd Functions) and on the host; ``remat``
+(False, True or ``"dots"``) checkpoints each pattern group as the
+reference's does.
 
 The port covers the decoder-only families: attention (dense, GQA,
 local/global), hybrid (recurrentgemma: RG-LRU + local attention) and ssm
@@ -31,9 +35,9 @@ class Model:
     def init(self, seed: int = 0, dtype: torch.dtype = torch.float32):
         return common.tree_init(self.defs, seed, dtype, self.device)
 
-    def loss_fn(self, params: Dict, batch: Dict
+    def loss_fn(self, params: Dict, batch: Dict, remat=False
                 ) -> Tuple[torch.Tensor, Dict]:
-        return transformer.loss_fn(params, batch, self.cfg)
+        return transformer.loss_fn(params, batch, self.cfg, remat=remat)
 
     def forward(self, params: Dict, batch: Dict,
                 caches: Optional[Dict] = None):

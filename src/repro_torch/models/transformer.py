@@ -23,15 +23,17 @@ returns new arrays of equal value.
 
 Each model exposes:
     lm_defs(cfg)                    ParamDef tree (single source of truth)
-    forward(params, tokens, ...)    logits (train / prefill; optional caches)
+    forward(params, tokens, ...)    logits (train / prefill; optional caches;
+                                    ``remat`` per pattern group)
     init_cache(cfg, batch, len)     decode caches
     decode_step(params, cache, tokens, pos)
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -355,30 +357,79 @@ def _head(params, cfg, x):
     return common.mask_padded_vocab(logits, cfg.vocab_size)
 
 
-def _layers(params, caches, pat, n_groups, rem):
-    """(block params, block cache or None, block kind, attn kind) for every
-    layer in order: the stacked groups, then the remainder."""
+def _units(params, caches, cfg):
+    """The layers in order, as (stacked, layers): each stacked pattern
+    group, then each remainder layer alone; a layer is (block params,
+    block cache or None, block kind, attn kind)."""
+    pat, n_groups, rem = group_layout(cfg)
     for g in range(n_groups):
         gp = common.tree_index(params["groups"], g)
         gc = common.tree_index(caches["groups"], g) if caches else None
-        for j, (bk, ak) in enumerate(pat):
-            yield gp[f"b{j}"], gc[f"b{j}"] if gc else None, bk, ak
+        yield True, [(gp[f"b{j}"], gc[f"b{j}"] if gc else None, bk, ak)
+                     for j, (bk, ak) in enumerate(pat)]
     for j in range(rem):
         c = caches["rem"][f"b{j}"] if caches else None
-        yield params["rem"][f"b{j}"], c, *pat[j]
+        yield False, [(params["rem"][f"b{j}"], c, *pat[j])]
+
+
+def _layers(params, caches, cfg):
+    """`_units`' layers, one by one."""
+    for _, layers in _units(params, caches, cfg):
+        yield from layers
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_saveable``: keep the matrix
+    products' outputs, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematted(fn: Callable, remat) -> Callable:
+    """``fn`` under the reference's ``remat``: False as it is, True
+    recomputed in the backward (non-reentrant `torch.utils.checkpoint`),
+    ``"dots"`` recomputed but for its matrix products' outputs."""
+    if not remat:
+        return fn
+    from torch.utils import checkpoint
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _dots_saveable)
+    elif remat is not True:
+        raise ValueError(f"remat must be False, True or 'dots', got "
+                         f"{remat!r}")
+    return lambda *args: checkpoint.checkpoint(fn, *args,
+                                               use_reentrant=False, **kw)
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             embeds: Optional[torch.Tensor] = None,
-            caches: Optional[Dict] = None
+            caches: Optional[Dict] = None, remat=False
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Train (caches=None) / prefill (caches=init, filled in place).
-    Returns (logits, caches, aux)."""
-    pat, n_groups, rem = group_layout(cfg)
+    Returns (logits, caches, aux).  ``remat`` (False, True or ``"dots"``,
+    the reference's) checkpoints each stacked pattern group, as the
+    reference checkpoints its scanned group body; the remainder layers are
+    not checkpointed, as there."""
     x = _embed(params, cfg, tokens, embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp, bc, bk, ak in _layers(params, caches, pat, n_groups, rem):
-        x, _, a = block_apply(bp, x, cfg, bk, ak, cache=bc)
+
+    def run(x, layers):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for bp, bc, bk, ak in layers:
+            x, _, a = block_apply(bp, x, cfg, bk, ak, cache=bc)
+            aux = aux + a
+        return x, aux
+
+    grouped = _rematted(run, remat)
+    for stacked, layers in _units(params, caches, cfg):
+        x, a = (grouped if stacked else run)(x, layers)
         aux_total = aux_total + a
     x = common.norm(cfg.norm_kind, x, params["final_norm"])
     logits = common.logical(_head(params, cfg, x),
@@ -408,19 +459,20 @@ def decode_step(params: Dict, caches: Dict, tokens: torch.Tensor, pos: int,
                 cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
     """One-token step. tokens: (b, 1) int; pos: host int (current cache
     length).  Returns (logits (b, 1, vocab), caches updated in place)."""
-    pat, n_groups, rem = group_layout(cfg)
     x = _embed(params, cfg, tokens)
-    for bp, bc, bk, ak in _layers(params, caches, pat, n_groups, rem):
+    for bp, bc, bk, ak in _layers(params, caches, cfg):
         x, _, _ = block_apply(bp, x, cfg, bk, ak, cache=bc, pos=int(pos))
     x = common.norm(cfg.norm_kind, x, params["final_norm"])
     return _head(params, cfg, x), caches
 
 
-def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, remat=False
             ) -> Tuple[torch.Tensor, Dict]:
-    """Forward-only loss (no backward kernels yet: the training slice)."""
+    """Mean next-token cross-entropy (+ 0.01 aux) and its parts, as the
+    reference's; differentiable on the card through the kernels' autograd
+    Functions (``remat`` as in `forward`)."""
     logits, _, aux = forward(params, batch["tokens"], cfg,
-                             embeds=batch.get("embeds"))
+                             embeds=batch.get("embeds"), remat=remat)
     ce = common.cross_entropy(logits, batch["labels"])
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}

@@ -49,7 +49,7 @@ def test_slice_spec_covers_the_full_width_kernel_shapes():
     assert set(spec.gemm_shapes) <= set(spec.pallas_shapes)
     kinds = {p.kind for p in microbench.enumerate_points(spec)}
     assert kinds == {"gemm", "gemm_pallas", "elementwise", "prefill",
-                     "decode_step"}
+                     "decode_step", "train_step"}
 
 
 def _records(seed=0):
@@ -170,6 +170,8 @@ def test_unported_kinds_raise():
                                   model_phases=("train_step",), reps=1)
     points = microbench.enumerate_points(spec)
     assert [p.kind for p in points] == ["collective", "train_step"]
-    for pt in points:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            microbench.measure_point(pt, spec, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        microbench.measure_point(points[0], spec, device=CPU)
+    rec = microbench.measure_point(points[1], spec, device=CPU)
+    assert rec["key"] == points[1].key() and rec["kind"] == "train_step"
+    assert rec["t_s"] > 0 and rec["t_mean_s"] >= rec["t_s"]

@@ -41,6 +41,19 @@ from repro_torch.kernels.ref import (attention_ref, mlstm_parallel_ref,
 from repro_torch.models import build_model, common, xlstm
 from repro_torch.models.convert import params_from_numpy
 
+
+def _load_chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _load_chip_smoke()
+golden_weights = CS.golden_weights      # the golden files' numpy weights
+
 SHAPES = [(128, 128, 128), (256, 512, 128), (64, 384, 256), (8, 128, 128),
           (256, 256, 1024), (40, 120, 72), (4096, 1024, 2816),
           (4096, 5632, 1024),
@@ -631,14 +644,43 @@ KERNEL_CALLS = {    # name -> (wrapper module, inputs on a device -> call)
 }
 
 
+GRAD_CASES = {      # name -> cases on the card (shapes as _qkv etc. take)
+    "flash_attention": [
+        ((1, 4, 4, 128, 128, 64), dict(causal=True)),
+        ((2, 8, 2, 128, 128, 64), dict(causal=True)),
+        ((1, 2, 2, 256, 256, 32), dict(causal=True, window=32)),
+        ((1, 2, 1, 100, 77, 128), dict(causal=False)),
+        ((2, 4, 2, 1, 64, 32), dict(causal=False, q_offset=16, kv_len=17)),
+        ((2, 4, 1, 256, 256, 256), dict(causal=True, window=64))],
+    "rglru_scan": [(1, 128, 64), (3, 96, 32), (2, 7, 37), (1, 100, 40)],
+    "mlstm_parallel": [(1, 2, 128, 64), (2, 4, 100, 192), (1, 1, 77, 128),
+                       (2, 3, 65, 32)],
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(KERNEL_CALLS))
-def test_kernel_refuses_inputs_that_require_grad(name):
-    """No kernel has a backward yet, so a CUDA input that requires grad
-    raises under grad mode (autograd would drop its gradient without a
-    word) and launches nothing; under torch.no_grad() the kernel runs."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(GRAD_CASES))
+def test_kernel_refuses_inputs_that_require_grad(name, dtype):
+    """Attention, the scan and the mLSTM are autograd Functions on the
+    card: a CUDA input that requires grad launches the forward kernel (the
+    scan's backward launches it again, reversed), the forward is the
+    kernel's and the gradients are autograd's through the plain version
+    (``chip_smoke.function_grads``: float32 within 1e-5, bfloat16 within
+    1e-2 of max |gradient|); the GEMM, which has no backward, still
+    refuses such an input and launches nothing."""
     dev = _card()
-    mod, make = KERNEL_CALLS[name]
+    tdt = getattr(torch, dtype)
+    for i, case in enumerate(GRAD_CASES[name]):
+        if name == "flash_attention":
+            args, kw = _qkv(60 + i, *case[0], dev, tdt), case[1]
+        elif name == "rglru_scan":
+            args, kw = _rglru_inputs(60 + i, *case, dev, tdt), {}
+        else:
+            args, kw = _mlstm_inputs(60 + i, *case, dev, tdt), {}
+        launches, _ = CS.function_grads(name, args, kw, seed=i)
+        assert launches == CS.GRAD_LAUNCHES[name], (case, launches)
+    mod, make = KERNEL_CALLS["gemm"]
     fn, args = make(dev)
     args[0].requires_grad_(True)
     before = mod.LAUNCHES
@@ -652,33 +694,28 @@ def test_kernel_refuses_inputs_that_require_grad(name):
     assert bool(torch.isfinite(out.float()).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "recurrentgemma-2b",
+                                  "xlstm-125m"])
+def test_card_training_matches_the_golden_training_file(arch):
+    """Five AdamW steps of the reduced model in float32 on the card,
+    through the kernels' autograd Functions, on the file's batches,
+    against the reference's losses and first-step gradient norms in
+    tests/test_torch_golden_train.npz (``chip_smoke.TRAIN_GOLDEN_TOLS``)."""
+    dev = _card()
+    with np.load(CS.GOLDEN_TRAIN) as f:
+        golden = dict(f)
+    before = port_fa.LAUNCHES + port_rglru.LAUNCHES + port_mlstm.LAUNCHES
+    got = CS.train_golden_port(arch, dev, batches=tuple(
+        golden[f"{arch}/{key}"] for key in ("tokens", "labels")))
+    assert port_fa.LAUNCHES + port_rglru.LAUNCHES + port_mlstm.LAUNCHES \
+        > before
+    CS.hold_to_train_golden(got, golden, arch)
+
+
 GOLDEN = Path(__file__).with_name("test_torch_golden.npz")
 GOLDEN_ARCHS = ("qwen1.5-0.5b", "recurrentgemma-2b")
 GOLDEN_BATCH, GOLDEN_PROMPT, GOLDEN_STEPS = 2, 40, 8
-
-
-def golden_weights(defs, seed: int = 0):
-    """A ParamDef tree (the port's or the reference's: the same leaves) as
-    float32 numpy drawn from ``default_rng(seed)`` leaf by leaf in sorted
-    key order, each leaf as its def says (zeros, ones, or a normal times
-    ``scale`` or 1/sqrt(fan_in)), the rule of ``tree_init``: the same
-    numbers on any machine, so no weights are stored."""
-    rng = np.random.default_rng(seed)
-
-    def mk(d):
-        if d.init in ("zeros", "ones"):
-            return np.full(d.shape, d.init == "ones", np.float32)
-        fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
-        scale = d.scale if d.scale is not None else fan_in ** -0.5
-        return (rng.standard_normal(d.shape, np.float32)
-                * np.float32(scale)).astype(np.float32)
-
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {key: walk(tree[key]) for key in sorted(tree)}
-        return mk(tree)
-
-    return walk(defs)
 
 
 def golden_tokens(vocab: int) -> np.ndarray:
@@ -849,27 +886,21 @@ def test_card_runner_records_match_the_golden_records(tmp_path):
     labels, keys, flags and the non-finite pattern exactly the reference's
     records in tests/test_torch_golden_runner.jsonl, numbers within
     1e-4."""
-    import importlib.util
     import json
     _card()
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
     golden = {}
     for line in GOLDEN_RUNNER.read_text().splitlines():
         rec = json.loads(line)
         golden.setdefault(rec.pop("scenario"), []).append(rec)
-    runner = dict(cs.RUNNER, arches=cs.RUNNER["golden_arches"])
+    runner = dict(CS.RUNNER, arches=CS.RUNNER["golden_arches"])
     assert list(golden) == list(runner["scenarios"])
     for scenario, want in golden.items():
         d = tmp_path / scenario
-        cs._cli(cs.runner_argv(scenario, runner) + ["--out", d, "--device",
+        CS._cli(CS.runner_argv(scenario, runner) + ["--out", d, "--device",
                                                     "cuda"])
         got = [{k: v for k, v in r.items() if k != "chunk"}
-               for r in cs._jsonl(d / "results.jsonl")]
-        assert cs._held_records(got, want, scenario) > 0
-
+               for r in CS._jsonl(d / "results.jsonl")]
+        assert CS._held_records(got, want, scenario) > 0
 
 
 GOLDEN_SOE = Path(__file__).with_name("test_torch_golden_soe.json")
@@ -883,13 +914,8 @@ def test_card_soe_objectives_match_the_golden_file():
     three-step batched descent: values within 1e-4 relative, gradients
     within 1e-3 of their norm, iterates within 1e-4
     (``chip_smoke.SOE_TOLS``)."""
-    import importlib.util
     import json
     dev = _card()
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
     golden = json.loads(GOLDEN_SOE.read_text())
-    got = cs.soe_golden_port(golden, dev)
-    assert cs.hold_to_soe_golden(got, golden, cs.SOE_TOLS) == 504
+    got = CS.soe_golden_port(golden, dev)
+    assert CS.hold_to_soe_golden(got, golden, CS.SOE_TOLS) == 504

@@ -180,15 +180,19 @@ def test_model_step_records_on_the_host(tmp_path):
 
 
 def test_slice_suite_measures_the_model_steps():
+    """The slice suite's model steps: three archs (attention, scan and
+    mLSTM kernels) x prefill, decode and train steps; a train step
+    measures on the host (the gradient, as the reference's jax.grad)."""
     spec = microbench.default_spec("slice")
-    assert spec.model_archs == ("qwen1.5-0.5b",)
-    assert spec.model_phases == ("prefill", "decode_step")
+    assert spec.model_archs == ("qwen1.5-0.5b", "recurrentgemma-2b",
+                                "xlstm-125m")
+    assert spec.model_phases == ("prefill", "decode_step", "train_step")
     assert (spec.model_seq, spec.model_batch) == (128, 2)
     kinds = [p.kind for p in microbench.enumerate_points(spec)]
-    assert kinds[-2:] == ["prefill", "decode_step"]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        microbench.measure_point(
-            microbench.MeasurePoint("train_step", (("arch", "qwen1.5-0.5b"),
-                                                   ("batch", 2),
-                                                   ("seq", 8))),
-            spec, device="cpu")
+    assert kinds[-9:] == ["prefill", "decode_step", "train_step"] * 3
+    for arch in spec.model_archs:
+        pt = microbench.MeasurePoint("train_step", (("arch", arch),
+                                                    ("batch", 2),
+                                                    ("seq", 8)))
+        rec = microbench.measure_point(pt, spec, device="cpu")
+        assert rec["kind"] == "train_step" and rec["t_s"] > 0

@@ -33,6 +33,7 @@ from repro_torch import pathfind
 from repro_torch.calibrate import microbench, profiles
 from repro_torch.core import age, lmgraph, pathfinder, roofline
 from repro_torch.core.parallelism import Strategy
+from repro_torch.launch import train as port_train
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -94,6 +95,8 @@ def test_entry_points_need_the_card_unless_asked(cal_dir):
     with pytest.raises(RuntimeError, match="CUDA"):
         pathfinder.BatchedEvaluator(lmgraph.gemm_graph(64, 64, 64),
                                     Strategy("RC", kp1=1, kp2=1, dp=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_train.main(["--reduced", "--steps", "1"])
 
 
 TINY = dict(suite="slice", gemm_shapes=((64, 64, 64), (128, 128, 256)),
@@ -186,10 +189,17 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     deepflow = dict(cs.DEEPFLOW, soe=tuple(cs.SOE_CASES["soe_cli"][1][1:]),
                     cooptimize=("--top-k", "1", "--candidates", "1",
                                 "--steps", "2", "--starts", "2"))
+    # phase 7: a few Function cases, then training at smoke size
+    train = dict(cs.TRAIN, batch=2, seq=16, steps=8, resume_at=5, timed=2,
+                 others=(("recurrentgemma-2b", 2, 16), ("xlstm-125m", 2, 8)),
+                 other_steps=2, use_reduced=True,
+                 grads={"flash_attention": cs.GRAD_CASES["flash_attention"][
+                     :2], "rglru_scan": cs.GRAD_CASES["rglru_scan"][:2],
+                     "mlstm_parallel": cs.GRAD_CASES["mlstm_parallel"][:2]})
     rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
                   dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
                   16, recurrent, steps=3, starts=2, search=search,
-                  runner=runner, deepflow=deepflow)
+                  runner=runner, deepflow=deepflow, train=train)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
     assert "strategy       RC-1-16-d16-p1" in out
@@ -213,13 +223,30 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     assert "phase 6: recurrentgemma-2b-smoke" in out
     assert "phase 6: xlstm-125m-smoke" in out
     assert out.count("Model.prefill (2, 16)") == 2
+    for name in ("flash_attention", "rglru_scan", "mlstm_parallel"):
+        for dtype in ("float32", "bfloat16"):
+            assert f"  {name} {dtype}: 2 cases, gradients within" in out
+    assert "phase 7 (b): train qwen1.5-0.5b-smoke" in out
+    assert "  resumed from the step-5 checkpoint (6 updates) for 2 " \
+        "steps" in out
+    assert "tokens/s; the planner's predicted step (RC-1-1-d1-p1" in out
+    assert "phase 7 (c): train recurrentgemma-2b-smoke" in out
+    assert "phase 7 (c): train xlstm-125m-smoke" in out
+    assert out.count("worst rel err") == 3
+    for arch in cs.REMAT["archs"]:
+        for remat in ("True", "'dots'"):
+            assert f"  {arch}-smoke (2, 64) remat={remat}: loss rel" in out
     assert [r["name"] for r in rows] == ["gemm", "flash_attention",
                                          "rglru_scan", "mlstm_parallel"]
+    assert [r["backward"] for r in rows] == [
+        "none (refuses)", "plain recompute", "rglru_scan kernel, reversed",
+        "plain recompute"]
     for row in rows:
         assert row["launches"] == 0
         assert set(row) == {"name", "route", "source", "replaces",
-                            "launches", "max_abs_err", "ms", "plain_ms",
-                            "bound_ms", "bound_by", "library_ms"}
+                            "backward", "launches", "max_abs_err", "ms",
+                            "plain_ms", "bound_ms", "bound_by",
+                            "library_ms"}
         assert (REPO / row["source"]).is_file()
         path, line = row["replaces"].split(":")
         assert "pallas_call" in (REPO / path).read_text().splitlines()[
@@ -253,7 +280,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_card.py"]
     assert len(files) > 20
     walked = {f.parent.name for f in files}
-    assert {"core", "kernels", "calibrate", "models", "launch"} <= walked
+    assert {"core", "kernels", "calibrate", "models", "launch", "optim",
+            "data", "runtime", "checkpoint"} <= walked
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
