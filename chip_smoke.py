@@ -9,9 +9,11 @@ calls: measure -> fit -> profile -> report -> validate
 CrossFlow prediction, the search layer and the chunked sweep runner
 (``pathfind plan|sweep|size``), DeepFlow's search (``pathfind
 soe|cooptimize``), serving full-width qwen1.5-0.5b
-(``python -m repro_torch.launch.serve``), and the recurrent families at
+(``python -m repro_torch.launch.serve``), the recurrent families at
 full width (``Model.prefill`` and ``serve`` of recurrentgemma-2b and
-xlstm-125m):
+xlstm-125m), training (``launch.train.train``), and the MoE,
+encoder-decoder and LSTM families (qwen2-moe-a2.7b and whisper-large-v3
+at full width):
 
   1. setup     prints the card's name and power limit and builds every
                CUDA kernel of the paths from ``src/repro_torch/kernels/csrc``
@@ -105,11 +107,31 @@ xlstm-125m):
                the mLSTM kernels' shares of its device-busy time),
                ``serve(batch=8,
                prompt_len=128, gen=32)``, the same 2047 + 1 against 2048
-               consistency check, and a profiled decode window.
+               consistency check, and a profiled decode window;
+  7. train     the kernels' autograd Functions against autograd through
+               their plain versions, then ``launch.train.train`` at full
+               width (qwen1.5-0.5b with a checkpoint round trip,
+               recurrentgemma-2b, xlstm-125m), the reduced archs against
+               ``tests/test_torch_golden_train.npz``, and remat;
+  8. families  MoE, the encoder-decoder and the LSTM: (a) the reduced
+               qwen2-moe-a2.7b, qwen3-moe-30b-a3b (both dispatches),
+               whisper-large-v3 and paper-lm in f32 and bf16 against the
+               reference's outputs in ``tests/test_torch_golden_families.
+               npz`` (FAMILY_GOLDEN); (b) full-width qwen2-moe-a2.7b:
+               ``serve``, ``Model.prefill`` of (2, 2048), the 2047 + 1
+               check at capacity 8.0 (no drops), its first MoE layer
+               against a dense computation, a profiled decode window; (c)
+               full-width whisper-large-v3: ``Model.prefill`` of (2, 1500)
+               frame embeddings, 16 decode steps from it against a
+               forward, a profiled decode window, ``serve``, and 3 steps
+               of ``launch.train.train`` at 1500 frames and 448 tokens,
+               one more timed and one profiled.  Phase 2 holds the
+               attention kernel to its plain version at every shape
+               these paths give it (ATTN_PATH).
 
-Every kernel's launch count is zeroed just before phases 3-5 and again
-just before phase 6, and read just after each; each must have risen by
-exactly the count the paths imply.  Any failure exits non-zero.  The last
+Every kernel's launch count is zeroed just before phases 3-5, 6, 7 (b)-(e)
+and 8, and read just after each; each must have risen by exactly the count
+the paths imply.  Any failure exits non-zero.  The last
 two lines of standard output are a JSON line of kernel results and the
 device line ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line
 before them is the card's name and power limit as nvidia-smi gives them.
@@ -219,9 +241,32 @@ ATTN_PATH = (   # the shapes the main paths give the kernel
       for n in (1, 80, 160)),
     ((2, 10, 1, 1, 2048, 256), dict(causal=False, q_offset=2047,
                                     kv_len=2048)),
+    # phase 8, whisper-large-v3 (d 64): the encoder over 1500 frames
+    # (non-causal), the decoder's self- and cross-attention in training
+    # (448 tokens) and over 16 tokens, decode steps over the 448-slot self
+    # ring and the 1500-row cross cache, serve's over its 160-row zero cross
+    # cache
+    ((2, 20, 20, 1500, 1500, 64), dict(causal=False)),
+    ((2, 20, 20, 448, 1500, 64), dict(causal=False)),
+    ((2, 20, 20, 448, 448, 64), dict(causal=True)),
+    ((2, 20, 20, 16, 16, 64), dict(causal=True)),
+    ((2, 20, 20, 16, 1500, 64), dict(causal=False)),
+    *(((b, 20, 20, 1, 448, 64), dict(causal=False, q_offset=n - 1, kv_len=n))
+      for b, n in ((2, 1), (2, 16), (8, 80), (8, 160))),
+    ((2, 20, 20, 1, 1500, 64), dict(causal=False)),
+    ((8, 20, 20, 1, 160, 64), dict(causal=False)),
+    # phase 8, qwen2-moe-a2.7b (d 128): prefill 2048 / 2047, serve's decode
+    # and the check's step at 2048
+    ((2, 16, 16, 2048, 2048, 128), dict(causal=True)),
+    ((2, 16, 16, 2047, 2047, 128), dict(causal=True)),
+    *(_decode(8, 16, 160, 128, n) for n in (1, 80, 160)),
+    _decode(2, 16, 2048, 128, 2048),
 )
 # full-width prefill and decode: qwen1.5-0.5b (d 64), recurrentgemma (d 256)
 ATTN_TIMED = (ATTN_PATH[0], ATTN_PATH[3], ATTN_PATH[8], ATTN_PATH[12])
+# timed beside SDPA and printed, outside the JSON row's sum (which keeps
+# the four shapes above): whisper's encoder, qwen2-moe's prefill (d 128)
+ATTN_TIMED_FAMILIES = (ATTN_PATH[14], ATTN_PATH[25])
 ATTN_BLOCKS = ((128, 128), (32, 64))
 ATTN_TOLS = {"float32": 2e-3, "bfloat16": 3e-2}    # rtol = atol
 # the RG-LRU scan: (batch, seq, width); the tests' shapes (widths 37, and
@@ -312,9 +357,13 @@ SOE_CASES = dict(
              ["soe", *DEEPFLOW["soe"], "--steps", "3", "--starts", "2"]])
 SERVE = dict(batch=8, prompt_len=128, gen=32, use_reduced=False)
 CHECK_LEN = 2048        # phase 5's prefill-vs-decode consistency prompt
+# ``profiled``: the archs whose prefill is also profiled on the card
+# (xlstm-125m's, 94,975 launches of its sLSTM loop, is left out to keep
+# the phases inside their time limit; PERF.md keeps its numbers)
 RECURRENT = dict(archs=("recurrentgemma-2b", "xlstm-125m"), prefill=(2, 2048),
                  serve=dict(batch=8, prompt_len=128, gen=32),
-                 check_len=2048, use_reduced=False)
+                 check_len=2048, use_reduced=False,
+                 profiled=("recurrentgemma-2b",))
 # phase 7, training.  (a) each autograd Function (attention, scan, mLSTM)
 # against autograd through its plain version: phase 2's unit cases and the
 # shapes the training runs give it, both dtypes; forwards at phase 2's
@@ -381,6 +430,61 @@ CHAOTIC_LOSS_TOL = 1e-2
 # activations, and each mLSTM layer's kernel is held to its decode
 # recurrence in bf16 on that layer's input.
 CHAOTIC_BF16 = ("xlstm-125m",)
+# phase 8 (a), the model families against the reference's own outputs
+# (tests/test_torch_golden_families.npz, written on the host by
+# tests/test_torch_golden_families.py): each case is a reduced arch,
+# "+grouped_tp" its MoE dispatch grouped_tp over 2 groups; weights
+# `golden_weights`, inputs the file's (``tokens`` (batch, prompt + steps +
+# 1), ``frames`` (batch, frames, 128)), in float32 and bfloat16.  Each case
+# holds: the logits of a forward over the prompt (decoder-only: into fresh
+# caches, then ``steps`` decode steps; encoder-decoder: the forward of frames
+# and prompt, the prefill's cross caches, then ``steps`` decode steps from
+# them; the LSTM: the forward), the loss of the prompt (labels the next
+# tokens) and the global norm of its gradient, and for MoE each router
+# call's experts.  FAMILY_TOLS: logits and caches of max |value|, loss and
+# gradient norm relative.  MoE routing: identical in float32; in bfloat16
+# the router product is rounded to bfloat16, so a token whose k-th and
+# (k+1)-th experts lie within NEAR_TIE (in logit units: 4 bfloat16 ulps of
+# a logit in [2, 4)) may take either; there the case runs twice, once
+# with the reference's experts forced (every value held at FAMILY_TOLS)
+# and once with its own (every expert it takes that the reference did not
+# within NEAR_TIE of the one it left, the margins printed; the forward's
+# logits held at the tokens, in (batch, position) order, before the first
+# that took other experts: causal attention and the experts' capacity
+# carry a flip to later tokens).  Only the first router call where the
+# runs part must be a near tie (`first_divergence`): from there a token
+# that took other experts feeds later layers other inputs.
+FAMILY_GOLDEN = dict(cases=("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                            "qwen3-moe-30b-a3b+grouped_tp",
+                            "whisper-large-v3", "paper-lm"),
+                     batch=2, prompt=16, steps=6, frames=24, groups=2)
+GOLDEN_FAMILIES = ROOT / "tests" / "test_torch_golden_families.npz"
+FAMILY_TOLS = {"float32": dict(logits=1e-4, cache=1e-2, loss=1e-4,
+                               grad=1e-3),
+               "bfloat16": dict(logits=3e-2, cache=3e-2, loss=1e-2,
+                                grad=3e-2)}
+NEAR_TIE = 1 / 16
+# phase 8 (b), (c): the families at full width, random f32 weights from
+# seed 0.  qwen2-moe-a2.7b (56 GB of f32 weights; serve builds its own,
+# so it runs first and frees them): serve, one prefill, the 2047 + 1
+# against 2048 check at capacity ``check_capacity`` (nothing dropped),
+# the first MoE layer against a dense computation, a profiled decode
+# window.  whisper-large-v3: the prefill of ``frames`` frame embeddings,
+# ``steps`` decode steps from it against a forward, a profiled decode
+# window, serve (its prompt stepped against init_cache's zero cross cache,
+# as the reference's serve does), and ``train_steps`` steps of
+# ``launch.train.train`` at ``train`` (batch, frames) with decoder_len
+# tokens, one more timed and one profiled.  Their profiled decode windows
+# are ``profile`` (prompt, generated) tokens: 2 + 4, where phases 5 and 6
+# take 4 + 8 (the profiler's own cost grows with MoE's 3,600 launches a
+# step).
+FAMILIES = dict(
+    moe=dict(arch="qwen2-moe-a2.7b", prefill=(2, 2048), check_len=2048,
+             check_capacity=8.0),
+    whisper=dict(arch="whisper-large-v3", frames=(2, 1500), steps=16,
+                 train=(2, 1500), train_steps=3, lr=1e-4, warmup=1),
+    serve=dict(batch=8, prompt_len=128, gen=32), use_reduced=False,
+    profile=(2, 4))     # the profiled decode window: prompt, generated
 
 
 def _port():
@@ -738,11 +842,12 @@ def _sdpa_backends(q, k, v, causal: bool, gqa: bool) -> str:
     return ", ".join(took) or "none (math)"
 
 
-def phase_attention(device, cmp_cases, timed_cases) -> dict:
+def phase_attention(device, cmp_cases, timed_cases, more_timed=()) -> dict:
     """Flash-attention kernel vs `attention_ref` on the same inputs;
-    timings at ``timed_cases`` in bf16, the serving path's dtype.  The
-    library call is SDPA with ``enable_gqa`` where the head counts differ,
-    so that its fused backends take the grouped shapes."""
+    timings at ``timed_cases`` in bf16, the serving path's dtype, summed
+    into the JSON row, and at ``more_timed``, printed only.  The library
+    call is SDPA with ``enable_gqa`` where the head counts differ, so that
+    its fused backends take the grouped shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -774,7 +879,7 @@ def phase_attention(device, cmp_cases, timed_cases) -> dict:
         return {"max_abs_err": max_abs["bfloat16"], "timing": None}
     timing = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "flops": 0.0, "bytes": 0.0, "dtype": "bfloat16"}
-    for shape, kw in timed_cases:
+    for i, (shape, kw) in enumerate(timed_cases + tuple(more_timed)):
         b, h, hkv, sq, skv, d = shape
         q, k, v = _attn_inputs(shape, torch.bfloat16, gen, device)
         kvl = kw.get("kv_len") or skv
@@ -798,7 +903,10 @@ def phase_attention(device, cmp_cases, timed_cases) -> dict:
               f"F.scaled_dot_product_attention {lib:.4f} ms (enable_gqa="
               f"{gqa}; fused backends that take it: {backends}), bound "
               f"{bound:.5f} ms ({by}), kernel/bound {ms / bound:.1f}x, "
-              f"kernel/SDPA {ms / lib:.2f}x")
+              f"kernel/SDPA {ms / lib:.2f}x"
+              + ("" if i < len(timed_cases) else " (not in the JSON row)"))
+        if i >= len(timed_cases):
+            continue
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("flops", flops), ("bytes", nbytes)):
             timing[key] += val
@@ -1584,6 +1692,58 @@ def _consistency(model, params, device, check_len: int) -> None:
     assert err <= ATTN_TOLS["bfloat16"] * scale, (err, scale)
 
 
+def _moe_consistency(model, params, device, check_len: int) -> list:
+    """`_consistency` for an MoE arch, with the routing rule of
+    FAMILY_GOLDEN: the step's own experts for the last token may part
+    from the ``check_len``-token forward's only at a near tie (the first
+    layer where they part within NEAR_TIE; margins printed, the router
+    products of 2 and of 4096 rows round differently in bf16); where they
+    differ, the step is taken again with the
+    forward's experts (it rewrites its cache slot with the same token)
+    and that step is held to the forward at the bf16 tolerance.  Returns
+    the two forwards' router calls (probabilities, experts) and the decode
+    steps taken (1 or 2)."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                            (2, check_len))
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        caches = model.init_cache(2, check_len)
+        with moe_routing() as pre:
+            model.forward(params, {"tokens": ids[:, :-1]}, caches=caches)
+        with moe_routing() as whole:
+            full = model.forward(params, {"tokens": ids})[0][:, -1]
+        want = [i.reshape(2, check_len, -1)[:, -1] for _, i in whole.calls]
+        with moe_routing() as own:
+            step, _ = model.decode_step(params, caches, ids[:, -1:],
+                                        check_len - 1)
+        flips = routing_flips(own.calls, want)
+        print(f"  the step's own routing: {len(flips)} of "
+              f"{2 * len(want)} router rows (layer by layer) take other "
+              f"experts than the {check_len}-token forward's last token; "
+              f"margins (ln P) {[(c, round(m, 5)) for c, _, m in flips]} "
+              f"(layer, margin), the first layer's at most NEAR_TIE "
+              f"{NEAR_TIE:.4f}")
+        assert all(m <= NEAR_TIE for _, _, m in first_divergence(flips)), \
+            flips
+        if flips:
+            with moe_routing(want):
+                step, _ = model.decode_step(params, caches, ids[:, -1:],
+                                            check_len - 1)
+    step, full = step[:, 0, :cfg.vocab_size], full[:, :cfg.vocab_size]
+    err = (step - full).abs().max().item()
+    scale = full.abs().max().item()
+    print(f"  prefill {check_len - 1} + 1 decode step"
+          + (" (the forward's experts)" if flips else "")
+          + f" vs a {check_len}-token forward: max abs logit diff "
+          f"{err:.4e} of max |logit| {scale:.4e} ({err / scale:.2e})")
+    assert math.isfinite(err) and bool(torch.isfinite(full).all())
+    assert err <= ATTN_TOLS["bfloat16"] * scale, (err, scale)
+    return pre.calls + whole.calls, 1 + bool(flips)
+
+
 def _mlstm_layers_check(model, params, device, check_len: int) -> int:
     """Each mLSTM layer on its own input from a ``check_len``-token forward:
     the parallel form (the kernel) at the last position against the
@@ -1624,13 +1784,17 @@ def _mlstm_layers_check(model, params, device, check_len: int) -> int:
 def _serve(arch: str, device, serve_kw: dict):
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve as serve_mod
+    t0 = time.perf_counter()
     out = serve_mod.serve(arch, device=device, **serve_kw)
+    wall = time.perf_counter() - t0
     toks = out["tokens"]
     assert toks.shape == (serve_kw["batch"], serve_kw["gen"]), toks.shape
     assert toks.min() >= 0 and toks.max() < get_config(arch).vocab_size
     print(f"  plan {out['plan']}: prefill_s {out['prefill_s']:.4f} "
           f"(stepping {serve_kw['prompt_len']} prompt tokens), decode_s "
-          f"{out['decode_s']:.4f}, tok_per_s {out['tok_per_s']:.1f}")
+          f"{out['decode_s']:.4f}, tok_per_s {out['tok_per_s']:.1f}; "
+          f"serve() {wall:.2f}s in all (the planner and the weights' "
+          f"init included)")
     print(f"  first tokens: {toks[0, :8].tolist()} {toks[-1, :8].tolist()}")
 
 
@@ -1691,7 +1855,8 @@ def phase_recurrent(device, rec: dict) -> dict:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 times.append(time.perf_counter() - t1)
-            if device.type == "cuda":       # a third, profiled
+            profiled = device.type == "cuda" and arch in rec["profiled"]
+            if profiled:                    # a third, profiled
                 prof = _device_profile(
                     lambda: model.prefill(params, {"tokens": ids}), 1,
                     f"Model.prefill ({batch}, {plen})")
@@ -1711,7 +1876,7 @@ def phase_recurrent(device, rec: dict) -> dict:
               f"(first call {times[0] * 1e3:.2f} ms), {len(leaves)} cache "
               f"tensors, all finite")
         # the prefills (one profiled on the card), the check's forwards
-        forwards = (3 if device.type == "cuda" else 2) + 2
+        forwards = (3 if profiled else 2) + 2
         layer_checks = 0
         if arch in CHAOTIC_BF16 and cfg.dtype == "bfloat16":
             # a pass through the stack, plus a parallel form per layer
@@ -2121,6 +2286,236 @@ def golden_batches(arch: str, golden: dict = TRAIN_GOLDEN):
                  for key in ("tokens", "labels"))
 
 
+def family_cfg(case: str, dtype: str, get_config, reduced):
+    """The reduced config of a FAMILY_GOLDEN case in ``dtype``, from either
+    package's ``get_config`` / ``reduced``."""
+    arch, _, impl = case.partition("+")
+    over = dict(moe_impl=impl, moe_groups=FAMILY_GOLDEN["groups"]) \
+        if impl else {}
+    return dataclasses.replace(reduced(get_config(arch)), dtype=dtype,
+                               **over)
+
+
+def family_inputs(seed: int = 5, golden: dict = FAMILY_GOLDEN):
+    """(tokens int32 (batch, prompt + steps + 1) over the reduced vocab
+    512, frames float32 (batch, frames, 128)) from ``default_rng(seed)``;
+    the file keeps them, so the card reads them from there."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b = golden["batch"]
+    toks = rng.integers(0, 512, (b, golden["prompt"] + golden["steps"] + 1))
+    frames = rng.standard_normal((b, golden["frames"], 128), np.float32)
+    return toks.astype(np.int32), frames
+
+
+class moe_routing:
+    """Context: every router call of the port's MoE layers recorded as
+    (probabilities (t, E) float32, experts (t, k)) numpy; with ``forced``
+    (expert arrays in call order) the router takes those experts, their
+    weights from its own probabilities, instead of its own top k."""
+
+    def __init__(self, forced=None):
+        self.forced = None if forced is None else list(forced)
+        self.calls = []
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from repro_torch.models import moe
+        self._mod, self._orig = moe, moe.top_k
+
+        def top_k(probs, k):
+            if self.forced is None:
+                vals, idx = self._orig(probs, k)
+            else:
+                idx = torch.from_numpy(np.array(
+                    self.forced.pop(0), np.int64)).to(probs.device)
+                idx = idx.reshape(*probs.shape[:-1], k)
+                vals = torch.gather(probs, -1, idx)
+            self.calls.append((
+                probs.detach().float().reshape(-1, probs.shape[-1])
+                .cpu().numpy(), idx.reshape(-1, k).cpu().numpy()))
+            return vals, idx
+
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.top_k = self._orig
+        return False
+
+
+def routing_flips(calls, want) -> list:
+    """(call, row, margin) for every router row whose experts differ from
+    ``want``'s (expert arrays in call order): the margin is ln P(a) -
+    ln P(b) under the row's own probabilities, a the least likely expert
+    it took that ``want`` did not, b the likeliest ``want`` took that it
+    did not."""
+    import numpy as np
+    out = []
+    for c, ((probs, idx), ref) in enumerate(zip(calls, want)):
+        ref = np.asarray(ref).reshape(idx.shape)
+        for r in range(idx.shape[0]):
+            took, wanted = set(idx[r].tolist()), set(ref[r].tolist())
+            if took == wanted:
+                continue
+            a = min(took - wanted, key=lambda e: probs[r, e])
+            b = max(wanted - took, key=lambda e: probs[r, e])
+            out.append((c, r, float(np.log(probs[r, a])
+                                     - np.log(probs[r, b]))))
+    return out
+
+
+def first_divergence(flips) -> list:
+    """The flips (`routing_flips`) of the first router call, in call
+    order, whose experts differ: where two runs first part.  Each later
+    call sees inputs that this one already moved (a token that took other
+    experts is another token from there on), so only these rows must be
+    near ties (their margins within NEAR_TIE); the runs' values are held
+    with the experts replayed."""
+    return [f for f in flips if f[0] == flips[0][0]] if flips else []
+
+
+def family_outputs(model, params, tokens, frames, device,
+                   golden: dict = FAMILY_GOLDEN) -> dict:
+    """The port's numbers for one FAMILY_GOLDEN case: ``logits`` (the
+    forward over the prompt), ``steps`` (the decode steps' logits),
+    ``cross`` (the encoder-decoder's prefill cross K/V, stacked), ``loss``
+    and ``grad_norm`` (float64 norm over every leaf), as float32 numpy
+    over the real vocab.  The prompt runs as a prefill where the model has
+    a decode path."""
+    import numpy as np
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = model.cfg
+    b, n, steps = golden["batch"], golden["prompt"], golden["steps"]
+    v = cfg.vocab_size
+    toks = torch.as_tensor(tokens, dtype=torch.int32, device=device)
+    fr = torch.as_tensor(frames, device=device)
+    out = {}
+
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    with torch.no_grad():
+        if model.kind == "lm":
+            caches = model.init_cache(b, n + steps)
+            logits, caches, _ = model.forward(
+                params, {"tokens": toks[:, :n]}, caches=caches)
+            first = n
+        else:
+            batch = {"tokens": toks[:, :n], "frames": fr}
+            logits = model.forward(params, batch)[0]
+            if model.has_decode:
+                caches = model.prefill(params, batch)
+                out["cross"] = np.stack([np32(caches["cross"][key])
+                                         for key in ("k", "v")])
+            first = 0
+        out["logits"] = np32(logits)[..., :v]
+        if model.has_decode:
+            out["steps"] = np.stack([
+                np32(model.decode_step(params, caches,
+                                       toks[:, t:t + 1], t)[0])[:, 0, :v]
+                for t in range(first, first + steps)])
+    batch = {"tokens": toks[:, :n], "labels": toks[:, 1:n + 1]}
+    if model.kind == "encdec":
+        batch["frames"] = fr
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss_fn(live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    out["loss"] = np.float32(loss.item())
+    out["grad_norm"] = np.float32(math.sqrt(sum(
+        float(torch.sum(g.double() ** 2)) for g in grads)))
+    return out
+
+
+def _routes(golden, key: str) -> list:
+    """A case's recorded router calls (expert arrays in call order) from
+    the golden file: the prompt's forward, each decode step's and the
+    loss's forward."""
+    return [golden[f"{key}/routes/{i}"]
+            for i in range(int(golden[f"{key}/n_routes"]))]
+
+
+def family_golden_port(case: str, dtype: str, device, golden) -> dict:
+    """Run one case on ``device`` and hold it to the golden file (see
+    FAMILY_GOLDEN); returns {what: worst error as a share of its scale}."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_numpy
+    cfg = family_cfg(case, dtype, get_config, reduced)
+    model = build_model(cfg, device)
+    params = params_from_numpy(golden_weights(model.defs), device)
+    key = f"{case}/{dtype}"
+    tokens, frames = golden["tokens"], golden["frames"]
+    if not cfg.is_moe:
+        return hold_to_family_golden(
+            family_outputs(model, params, tokens, frames, device), golden,
+            key, dtype)
+    want = _routes(golden, key)
+    forced = dtype == "bfloat16"
+    with moe_routing(want if forced else None) as rec:
+        got = family_outputs(model, params, tokens, frames, device)
+    worst = hold_to_family_golden(got, golden, key, dtype)
+    if not forced:
+        flips = routing_flips(rec.calls, want)
+        assert not flips, (key, flips[:5])
+        return worst
+    # the router's own choice, where bf16 rounding may break near ties
+    with moe_routing() as own:
+        free = family_outputs(model, params, tokens, frames, device)
+    flips = routing_flips(own.calls, want)
+    first = first_divergence(flips)
+    print(f"  {key}: own routing: {len(flips)} of "
+          f"{sum(len(i) for _, i in own.calls)} router rows take other "
+          f"experts than the reference; margins (ln P) "
+          f"{[round(m, 5) for _, _, m in flips]}, the first call's at most "
+          f"NEAR_TIE {NEAR_TIE:.4f}")
+    assert all(m <= NEAR_TIE for _, _, m in first), (key, flips)
+    # a token that took other experts moves its own values, those of every
+    # later token of its sequence (causal attention) and, through the
+    # experts' capacity, those of any later token of the batch (the
+    # dispatch queues tokens in (batch, position) order and drops the
+    # latest): the tokens before the first such token are held to the file
+    b, n = FAMILY_GOLDEN["batch"], FAMILY_GOLDEN["prompt"]
+    first = min([r for c, r, _ in flips if c < cfg.n_layers],
+                default=b * n)          # in the prompt's router calls
+    kept = (np.arange(b * n) < first).reshape(b, n)
+    ref = golden[f"{key}/logits"]
+    err = np.abs(free["logits"] - ref)[kept].max(initial=0.0)
+    scale = np.abs(ref).max()
+    print(f"  {key}: own routing, forward logits at the {int(kept.sum())} "
+          f"of {kept.size} tokens (in batch order) before the first that "
+          f"took other experts: max abs diff {err:.3e} ({err / scale:.2e} "
+          f"of max)")
+    assert err <= FAMILY_TOLS[dtype]["logits"] * scale, (key, err, scale)
+    return worst
+
+
+def hold_to_family_golden(got: dict, golden, key: str, dtype: str) -> dict:
+    """Each value at FAMILY_TOLS[dtype]; prints and returns the errors."""
+    import numpy as np
+    tols = FAMILY_TOLS[dtype]
+    worst = {}
+    for name, val in got.items():
+        want = golden[f"{key}/{name}"]
+        assert np.shape(val) == np.shape(want), (key, name, np.shape(val),
+                                                 np.shape(want))
+        assert np.isfinite(val).all(), (key, name)
+        err = float(np.abs(np.asarray(val, np.float64) - want).max())
+        scale = float(np.abs(want).max())
+        tol = tols["cache" if name == "cross" else
+                   "grad" if name == "grad_norm" else name
+                   if name in tols else "logits"]
+        worst[name] = err / scale
+        assert err <= tol * scale, (key, name, err, scale, tol)
+    print(f"  {key}: " + ", ".join(f"{name} {val:.2e}"
+                                   for name, val in worst.items())
+          + " (max abs diff / max |value|)")
+    return worst
+
+
 def hold_to_train_golden(got: dict, golden, arch: str,
                          tols: dict = TRAIN_GOLDEN_TOLS) -> float:
     """Each key at its rtol (a chaotic arch's losses after the first update
@@ -2231,6 +2626,320 @@ def phase_remat(device, remat_cfg: dict = REMAT) -> collections.Counter:
     return expected
 
 
+def _attention_calls(cfg, what: str) -> int:
+    """Attention calls (flash-attention launches on the card) of one
+    ``"forward"``, ``"prefill"`` or ``"decode"`` step of ``cfg``: each
+    attention layer's, the encoder-decoder's encoder layers and each
+    decoder layer's self- and cross-attention, none for the LSTM."""
+    if cfg.family == "lstm":
+        return 0
+    if cfg.is_encoder_decoder:
+        return {"forward": cfg.n_encoder_layers + 2 * cfg.n_layers,
+                "prefill": cfg.n_encoder_layers,
+                "decode": 2 * cfg.n_layers}[what]
+    return sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def phase_families_golden(device, golden: dict = FAMILY_GOLDEN) -> int:
+    """Phase 8 (a): each FAMILY_GOLDEN case in both dtypes held to
+    tests/test_torch_golden_families.npz.  Returns the flash-attention
+    launches it must have made."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    print("== phase 8 (a): the reduced families against "
+          "tests/test_torch_golden_families.npz")
+    with np.load(GOLDEN_FAMILIES) as f:
+        data = dict(f)
+    n = 0
+    for case in golden["cases"]:
+        for dtype in ("float32", "bfloat16"):
+            family_golden_port(case, dtype, device, data)
+            cfg = family_cfg(case, dtype, get_config, reduced)
+            # the prompt (a prefill, or the encoder-decoder's forward and
+            # prefill), the steps, the loss's forward; bf16 MoE twice
+            prompt = _attention_calls(cfg, "forward") + (
+                _attention_calls(cfg, "prefill") if cfg.is_encoder_decoder
+                else 0)
+            per = prompt + golden["steps"] * _attention_calls(cfg, "decode") \
+                * (cfg.family != "lstm") + _attention_calls(cfg, "forward")
+            n += per * (2 if cfg.is_moe and dtype == "bfloat16" else 1)
+    return n
+
+
+def _moe_layer_check(model, params, ids, capacity_factor: float) -> None:
+    """The first MoE layer on its real input (the embedded ``ids`` through
+    the layer's attention): the dispatch at ``capacity_factor`` against a
+    dense plain computation (every expert on every token, weighted by the
+    same routing, accumulated in f32) at the bf16 tolerance, with the
+    dispatch's drops at that capacity (none) and at the config's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import common, moe, transformer
+
+    def ffn(x, wi, wo):                 # swiglu: the gate is the 2nd half
+        h = x @ wi.to(x.dtype)
+        if cfg.ffn_kind == "swiglu":
+            u, g = h.chunk(2, dim=-1)
+            h = F.silu(g) * u
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return (h @ wo.to(x.dtype)).float()
+
+    cfg = model.cfg
+    wide = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    d = cfg.d_model
+    with torch.no_grad():
+        bp = next(transformer._layers(params, None, cfg))[0]
+        x = transformer._embed(params, cfg, ids)
+        a, _ = transformer.attention_apply(
+            bp["attn"], common.norm(cfg.norm_kind, x, bp["ln1"]), cfg)
+        h = common.norm(cfg.norm_kind, x + a, bp["ln2"])
+        mp = bp["moe"]
+        with moe_routing() as rec:
+            got, _ = moe.moe_apply(mp, h, wide)
+        xt = h.reshape(-1, d)
+        _, topw, topi = moe.route(mp, xt, cfg)
+        assert (topi.cpu().numpy() == rec.calls[0][1]).all()
+        want = ffn(xt, mp["shared"]["wi"], mp["shared"]["wo"]) \
+            if cfg.n_shared_experts else torch.zeros(xt.shape,
+                                                     device=xt.device)
+        for e in range(cfg.n_experts):
+            w = ((topi == e) * topw).sum(-1)
+            want += w[:, None] * ffn(xt, mp["experts"]["wi"][e],
+                                     mp["experts"]["wo"][e])
+        err = (got.reshape(-1, d).float() - want).abs().max().item()
+        scale = want.abs().max().item()
+    drops = moe.dropped(topi, wide)
+    print(f"  the first MoE layer at {tuple(ids.shape)} on its real input, "
+          f"dispatch at capacity {capacity_factor} ({moe.capacity(wide, len(xt))} "
+          f"slots, {drops} dropped) vs every expert densely: max abs diff "
+          f"{err:.3e} of max {scale:.3e} ({err / scale:.2e}); at the "
+          f"config's {cfg.capacity_factor} ({moe.capacity(cfg, len(xt))} "
+          f"slots) the dispatch drops {moe.dropped(topi, cfg)} of "
+          f"{topi.numel()} assignments")
+    assert drops == 0 and math.isfinite(err)
+    assert err <= ATTN_TOLS["bfloat16"] * scale, (err, scale)
+
+
+def _prefill_timed(model, params, batch: dict, device, what: str):
+    """``Model.prefill`` twice (the first warms up); prints the second's
+    ms and checks every cache tensor is finite.  Returns the caches."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    times = []
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            caches = model.prefill(params, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+    leaves = tree_leaves(caches)
+    assert all(bool(torch.isfinite(t).all()) for t in leaves)
+    print(f"  Model.prefill {what}: {times[1] * 1e3:.2f} ms (first call "
+          f"{times[0] * 1e3:.2f} ms), {len(leaves)} cache tensors, all "
+          f"finite")
+    return caches
+
+
+class _Laps:
+    """Host-clock seconds of a phase's parts: `lap` ends one, `line`
+    prints them with the total."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.parts = []
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.parts.append(f"{name} {now - self.t:.2f}s")
+        self.t = now
+
+    def line(self, what: str) -> str:
+        return (f"# {what}: {time.perf_counter() - self.t0:.2f}s ("
+                + ", ".join(self.parts) + ")")
+
+
+def phase_moe(device, fam: dict) -> int:
+    """Phase 8 (b): qwen2-moe-a2.7b through ``serve``, ``Model.prefill``,
+    the prefill-vs-decode check at capacity ``check_capacity`` (no drops:
+    at the config's 1.25 a 2048-token forward drops its latest tokens in
+    overflowing experts, which a decode step never does), the first MoE
+    layer against a dense computation, and a profiled decode window.
+    Returns the flash-attention launches it must have made."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import build_model, moe
+    m = fam["moe"]
+    serve_kw = dict(fam["serve"], use_reduced=fam["use_reduced"])
+    cfg = get_config(m["arch"])
+    if fam["use_reduced"]:
+        cfg = reduced(cfg)
+    laps = _Laps()
+    print(f"== phase 8 (b): {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token} + {cfg.n_shared_experts} shared, "
+          f"{cfg.n_heads}x{cfg.resolved_head_dim} heads, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, f32 weights from "
+          f"seed 0)")
+    print(f"  serve {serve_kw}")
+    _serve(m["arch"], device, serve_kw)        # its own weights, freed
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    laps.lap("serve")
+    model = build_model(cfg, device)
+    params = model.init(0)
+    laps.lap("weights")
+    b, s = m["prefill"]
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), dtype=torch.int32, device=device)
+    caches = _prefill_timed(model, params, {"tokens": ids}, device,
+                            f"({b}, {s})")
+    del caches
+    laps.lap("prefill")
+    check = build_model(dataclasses.replace(
+        cfg, capacity_factor=m["check_capacity"]), device)
+    print(f"  the check at capacity {m['check_capacity']}:")
+    forwards, check_steps = _moe_consistency(check, params, device,
+                                             m["check_len"])
+    drops = [moe.dropped(torch.from_numpy(i), check.cfg)
+             for _, i in forwards]
+    at_config = [moe.dropped(torch.from_numpy(i), cfg) for _, i in forwards]
+    print(f"  its forwards' {len(forwards)} router calls drop {sum(drops)} "
+          f"assignments (at the config's {cfg.capacity_factor}: "
+          f"{sum(at_config)})")
+    assert sum(drops) == 0
+    laps.lap("check")
+    _moe_layer_check(model, params, ids, m["check_capacity"])
+    laps.lap("layer check")
+    prof_steps = _profile_decode(model, params, serve_kw, device,
+                                 *fam["profile"])
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    laps.lap("profiled decode")
+    print(laps.line("phase 8 (b)"))
+    a = _attention_calls(cfg, "decode")
+    steps = serve_kw["prompt_len"] + serve_kw["gen"]
+    # serve; two prefills; the check's two forwards and steps; the layer
+    # check's one attention; the profiled steps
+    return a * (steps + 2 + 2 + check_steps + prof_steps) + 1
+
+
+def phase_whisper(device, fam: dict) -> int:
+    """Phase 8 (c): whisper-large-v3 through ``Model.prefill`` of frame
+    embeddings (the encoder and each layer's cross K/V), decode steps from
+    that cache against a forward of the same frames and tokens, a profiled
+    decode window, ``serve``, and ``launch.train.train`` with a profiled
+    step.  Returns the flash-attention launches it must have made."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    w = fam["whisper"]
+    serve_kw = dict(fam["serve"], use_reduced=fam["use_reduced"])
+    cuda = device.type == "cuda"
+    cfg = get_config(w["arch"])
+    if fam["use_reduced"]:
+        cfg = reduced(cfg)
+    laps = _Laps()
+    print(f"== phase 8 (c): {cfg.name} ({cfg.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.resolved_head_dim} heads, decoder_len "
+          f"{cfg.decoder_len}, {cfg.param_count() / 1e9:.3f} B parameters, "
+          f"f32 weights from seed 0)")
+    model = build_model(cfg, device)
+    params = model.init(0)
+    laps.lap("weights")
+    b, nf = w["frames"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    frames = torch.randn((b, nf, cfg.d_model), generator=gen, device=device)
+    caches = _prefill_timed(model, params, {"frames": frames}, device,
+                            f"of ({b}, {nf}) frames")
+    n = w["steps"]
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, n)), dtype=torch.int32, device=device)
+    with torch.no_grad():
+        full = model.forward(params, {"frames": frames, "tokens": toks})[0]
+        steps = torch.cat([model.decode_step(params, caches,
+                                             toks[:, t:t + 1], t)[0]
+                           for t in range(n)], dim=1)
+    v = cfg.vocab_size
+    err = (steps[..., :v] - full[..., :v]).abs().max().item()
+    scale = full[..., :v].abs().max().item()
+    same = (steps[..., :v].argmax(-1) == full[..., :v].argmax(-1)).float()
+    print(f"  {n} decode steps from the prefill vs a forward of the same "
+          f"frames and {n} tokens: max abs logit diff {err:.4e} of max "
+          f"|logit| {scale:.4e} ({err / scale:.2e}); argmax agrees on "
+          f"{same.mean().item() * 100:.0f}% of positions")
+    assert math.isfinite(err) and err <= ATTN_TOLS["bfloat16"] * scale, \
+        (err, scale)
+    del caches
+    laps.lap("prefill and steps")
+    prof_steps = _profile_decode(model, params, serve_kw, device,
+                                 *fam["profile"])
+    del params, model
+    if cuda:
+        torch.cuda.empty_cache()
+    laps.lap("profiled decode")
+    print(f"  serve {serve_kw}")
+    _serve(w["arch"], device, serve_kw)
+    if cuda:
+        torch.cuda.empty_cache()
+    laps.lap("serve")
+    tb, ts = w["train"]
+    k = w["train_steps"]
+    print(f"  train at ({tb}, {ts}) frames and {min(cfg.decoder_len, ts)} "
+          f"decoder tokens, {k} steps, lr {w['lr']}, warmup {w['warmup']}")
+    t1 = time.perf_counter()
+    tc = train_mod.TrainConfig(
+        arch=w["arch"], steps=k, global_batch=tb, seq_len=ts, lr=w["lr"],
+        warmup=w["warmup"], log_every=1, use_reduced_config=fam[
+            "use_reduced"], seed=0, device=str(device))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    out = train_mod.train(tc)
+    if cuda:
+        torch.cuda.synchronize(device)
+    hist = out["history"]
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda \
+        else None
+    print(f"  {k} steps in {time.perf_counter() - t1:.2f}s (set-up and "
+          f"init included), losses {[round(x, 4) for x in hist]}, peak "
+          f"device memory "
+          + (f"{peak:.2f} GiB" if peak is not None else "not measured"))
+    assert len(hist) == k and all(np.isfinite(hist)), hist
+    assert hist[-1] < hist[0], hist
+    laps.lap("train")
+    if cuda:
+        step = train_mod.make_train_step(
+            build_model(cfg, device), cfg, optim.AdamWConfig(
+                lr=w["lr"], warmup_steps=w["warmup"], total_steps=k),
+            False, "none")
+        t2 = time.perf_counter()
+        st = out["state"]
+        batch = _batch(cfg, tb, ts, k, device)
+        step(st.params, st.opt_state, st.err_state, batch)
+        torch.cuda.synchronize(device)
+        print(f"  one more step: {(time.perf_counter() - t2) * 1e3:.2f} ms")
+        _profile_train_step(step, out, cfg, tb, ts, device, k + 1)
+        del step
+    del out
+    if cuda:
+        torch.cuda.empty_cache()
+    laps.lap("timed and profiled steps")
+    print(laps.line("phase 8 (c)"))
+    dec = _attention_calls(cfg, "decode")
+    train_steps = k + (2 if cuda else 0)
+    return (2 * _attention_calls(cfg, "prefill")
+            + _attention_calls(cfg, "forward") + n * dec
+            + dec * (prof_steps + serve_kw["prompt_len"] + serve_kw["gen"])
+            + train_steps * _attention_calls(cfg, "forward"))
+
+
 def _device_profile(fn, n: int, what: str):
     """``fn()`` under torch.profiler (CPU + CUDA): prints wall time and
     device-busy time per each of its ``n`` units of ``what``, the idle
@@ -2282,12 +2991,12 @@ def _device_profile(fn, n: int, what: str):
         spans
 
 
-def _profile_decode(model, params, serve_kw: dict, device) -> int:
+def _profile_decode(model, params, serve_kw: dict, device,
+                    prompt_len: int = 4, gen: int = 8) -> int:
     """Where a serving step's time goes: ``generate`` at the serve batch
     over a short prompt, profiled.  Returns the decode steps it ran."""
     import numpy as np
     from repro_torch.launch.serve import generate
-    prompt_len, gen = 4, 8
     prompts = np.random.default_rng(2).integers(
         0, model.cfg.vocab_size, (serve_kw["batch"], prompt_len))
     n = prompt_len + gen
@@ -2363,8 +3072,8 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
         check_len: int, recurrent: dict, steps: int = 40,
         starts: int = 2, search: dict = SEARCH,
         runner: dict = RUNNER, deepflow: dict = DEEPFLOW,
-        train: dict = TRAIN) -> list:
-    """Phases 2-7; returns the per-kernel result objects.  ``cases`` maps
+        train: dict = TRAIN, families: dict = FAMILIES) -> list:
+    """Phases 2-8; returns the per-kernel result objects.  ``cases`` maps
     each kernel to its (compared, timed) cases.  ``steps`` x ``starts`` is
     the fit's depth, cut from 80 x 6 since the suite's nine model-step
     points of three archs made each of its evaluations ~5x costlier on
@@ -2420,8 +3129,19 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     if device.type == "cuda":
         for name in ("flash_attention", "rglru_scan", "mlstm_parallel"):
             assert trained[name] > 0, f"phase 7 never launched {name}"
-    return [_row(name, launches[name] + more[name] + trained[name],
-                 results[name]) for name in KERNELS]
+    # this slice's path: the model families
+    t7 = time.perf_counter()
+    mods = _reset_launches()
+    n = phase_families_golden(device)
+    n += phase_moe(device, families)
+    n += phase_whisper(device, families)
+    print(f"# phase 8: {time.perf_counter() - t7:.2f}s")
+    fam = _check_launches(mods, {"flash_attention": n}, device, "phase 8")
+    if device.type == "cuda":
+        assert fam["flash_attention"] > 0, "phase 8 never launched " \
+            "flash_attention"
+    return [_row(name, launches[name] + more[name] + trained[name]
+                 + fam[name], results[name]) for name in KERNELS]
 
 
 def main() -> int:
@@ -2442,7 +3162,8 @@ def main() -> int:
         "gemm": (tuple(dict.fromkeys(UNIT_SHAPES + GEMM_EDGES
                                      + spec.pallas_shapes)),
                  microbench.QWEN_LAYER_SHAPES),
-        "flash_attention": (ATTN_UNIT + ATTN_PATH, ATTN_TIMED),
+        "flash_attention": (ATTN_UNIT + ATTN_PATH, ATTN_TIMED,
+                            ATTN_TIMED_FAMILIES),
         "rglru_scan": (RGLRU_UNIT + RGLRU_PATH, RGLRU_PATH[:1]),
         "mlstm_parallel": (MLSTM_UNIT + MLSTM_PATH, MLSTM_TIMED),
     }

@@ -298,14 +298,26 @@ def _smoke_model(pt: MeasurePoint, device: torch.device):
         int(pt.get("batch"))
 
 
+def _model_batch(cfg, batch: int, seq: int, device: torch.device) -> Dict:
+    """Zero tokens (labels the tokens) of (batch, seq); for the
+    encoder-decoder, zero frames of (batch, seq, d_model) and tokens cut
+    to ``decoder_len``, as the reference's."""
+    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+    if not cfg.is_encoder_decoder:
+        return {"tokens": tokens, "labels": tokens}
+    tokens = tokens[:, :cfg.decoder_len]
+    return {"frames": torch.zeros((batch, seq, cfg.d_model),
+                                  dtype=torch.float32, device=device),
+            "tokens": tokens, "labels": tokens}
+
+
 def _measure_prefill(pt: MeasurePoint, spec: MeasureSpec,
                      device: torch.device) -> Dict:
     """One forward pass over (batch, seq) tokens, no cache."""
-    _, model, params, seq, batch = _smoke_model(pt, device)
-    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+    cfg, model, params, seq, batch = _smoke_model(pt, device)
+    batch_d = _model_batch(cfg, batch, seq, device)
     with torch.no_grad():
-        best, mean = _time_fn(lambda: model.forward(params,
-                                                    {"tokens": tokens}),
+        best, mean = _time_fn(lambda: model.forward(params, batch_d),
                               spec.warmup, spec.reps, device)
     return {"flops": 0.0, "bytes": 0.0, "t_s": best, "t_mean_s": mean}
 
@@ -319,6 +331,8 @@ def _measure_decode(pt: MeasurePoint, spec: MeasureSpec,
     every run does the same work."""
     from repro_torch.core.scenarios import kv_cache_bytes
     cfg, model, params, seq, batch = _smoke_model(pt, device)
+    if not model.has_decode:
+        raise RuntimeError(f"{cfg.name}: model family has no decode path")
     caches = model.init_cache(batch, seq)
     tokens = torch.zeros((batch, 1), dtype=torch.int32, device=device)
     with torch.no_grad():
@@ -335,9 +349,8 @@ def _measure_train_step(pt: MeasurePoint, spec: MeasureSpec,
     tokens), no optimizer, as the reference's ``jax.grad(loss)``: forward
     and backward through the kernels' autograd Functions."""
     from repro_torch.tree import tree_leaves
-    _, model, params, seq, batch = _smoke_model(pt, device)
-    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
-    batch_d = {"tokens": tokens, "labels": tokens}
+    cfg, model, params, seq, batch = _smoke_model(pt, device)
+    batch_d = _model_batch(cfg, batch, seq, device)
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     best, mean = _time_fn(
         lambda: torch.autograd.grad(model.loss_fn(params, batch_d)[0],

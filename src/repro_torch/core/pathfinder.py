@@ -35,8 +35,7 @@ than the model, and where each goes (ROADMAP queue 1):
   * ``shard_devices`` and ``evaluate_matrix(devices > 1)``: item 9
     (parallelism).  One card is one device; asking for more raises;
   * the device-resident streaming frontier (``frontier_*``): item 11;
-  * `sweep`'s ``profile`` (calibrated efficiencies on every point): item 7,
-    with its first caller; its ``strategies_fn`` hook, which nothing sets;
+  * `sweep`'s ``strategies_fn`` hook, which nothing sets;
   * `PredictionCache`'s one-key ``get`` / ``put``: the evaluator looks up
     and inserts a batch at a time (``get_many`` / ``put_many``).
 
@@ -772,22 +771,29 @@ def sweep(arches: Sequence[str], cells: Sequence[str],
           budgets: Optional[Budgets] = None,
           ppe: PPEConfig = PPEConfig(n_tilings=8),
           cache: Optional[PredictionCache] = DEFAULT_CACHE,
-          device=None) -> SweepResult:
+          profile=None, device=None) -> SweepResult:
     """Cross-product design-space sweep (the paper's §9 studies, batched).
 
     arches x cells define workload graphs, mesh_shapes define systems and
     candidate strategies, (logic, hbm, net) triples define AGE'd hardware
     on ``device`` (the card unless the caller asks for ``"cpu"``).  All
     hardware points sharing a skeleton are scored in one vmapped call.
+    ``profile`` (a `repro_torch.calibrate` profile / dict / path) anchors
+    every hardware point and the PPE kernel overhead to measured
+    efficiencies.
     """
+    from repro_torch.calibrate import profiles as profiles_lib
     from repro_torch.configs.base import SHAPE_CELLS, get_config
     from repro_torch.core import lmgraph, techlib
     from repro_torch.core.placement import mesh_system
 
     dev = resolve_device(device)
     budgets = budgets or Budgets.default()
-    hw_axis = [((logic, hbm, net), age_lib.generate(
-        techlib.make_tech_config(logic, hbm, net), budgets, device=dev))
+    profile = profiles_lib.coerce(profile)
+    ppe = profiles_lib.ppe_with_profile(ppe, profile)
+    hw_axis = [((logic, hbm, net), profiles_lib.apply_profile(
+        age_lib.generate(techlib.make_tech_config(logic, hbm, net), budgets,
+                         device=dev), profile))
         for logic, hbm, net in itertools.product(logic_nodes, hbms, nets)]
 
     points: List[EvalPoint] = []

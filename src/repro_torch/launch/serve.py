@@ -11,7 +11,10 @@ through ``decode_step`` token by token (as the reference does, robust
 across families), then ``gen`` tokens are decoded greedily.  Every
 attention call of every step launches the hand-written flash-attention
 kernel.  The port runs on one card: a mesh of more than one device raises
-(sharding is ROADMAP queue 1 item 9).
+(sharding is ROADMAP queue 1 item 9).  The LSTM baseline has no decode
+path and raises, as the reference does.  The encoder-decoder steps its
+prompt against the zero cross cache `init_cache` gives it (the
+reference's loop; its encoder runs in `Model.prefill`).
 """
 
 from __future__ import annotations
@@ -87,6 +90,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     if use_reduced:
         cfg = reduced(cfg)
     model = build_model(cfg, dev)
+    if not model.has_decode:
+        raise ValueError(f"{arch} has no decode path")
     cell = ShapeCell("serve", prompt_len + gen, batch, "decode")
     axes = ("pod", "data", "model")[-len(mesh_shape):]
     plan = planner_lib.plan(cfg, cell, mesh_shape, axes, device=dev)

@@ -98,7 +98,8 @@ def make_train_step(model: Model, cfg: ArchConfig,
             grads = decompress(comp, grads)
         params, opt_state, om = optim.apply(opt_cfg, opt_state, params,
                                             grads)
-        metrics = dict(metrics, loss=loss.detach(), **om)
+        metrics = {k: v.detach() for k, v in
+                   dict(metrics, loss=loss, **om).items()}
         return params, opt_state, err_state, metrics
 
     return step_fn

@@ -20,8 +20,10 @@ and by activations: batch, act_seq, act_embed, act_heads.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -70,8 +72,10 @@ def tree_init(defs, seed: int = 0, dtype: torch.dtype = torch.float32,
             return torch.ones(d.shape, dtype=dtype, device=dev)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
         scale = d.scale if d.scale is not None else fan_in ** -0.5
-        return (torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                            device=dev) * scale).to(dtype)
+        # drawn and scaled in place: a leaf of tens of GB (qwen2-moe's
+        # stacked experts) never needs twice its size
+        return torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                           device=dev).mul_(scale).to(dtype)
 
     def walk(tree):                 # sorted keys: the reference's order
         if isinstance(tree, dict):
@@ -140,6 +144,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device="cpu") -> torch.Tensor:
+    """(seq, d) float32: sin then cos of pos / 10000^(2i/d), computed in
+    float64 numpy as the reference's and rounded once, so the table is the
+    reference's bit for bit.  Cached per (seq, d, device): callers read
+    it and never write it."""
+    return _sinusoidal(seq, d, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoidal(seq: int, d: int, device: str) -> torch.Tensor:
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
 
 
 def activation(kind: str, x: torch.Tensor) -> torch.Tensor:

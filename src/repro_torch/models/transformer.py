@@ -1,6 +1,6 @@
 """Decoder-only LM: the attention families (dense, GQA, local/global with a
 ring-buffer cache, QKV bias, RoPE, logit softcap, the vision-stub
-``embeds``) of ``repro.models.transformer``.
+``embeds``), MoE, hybrid and xLSTM of ``repro.models.transformer``.
 
 Layers come in *pattern groups*: the per-layer kind sequence has period
 lcm(|block_pattern|, |attn_pattern|); per-group params are stacked along a
@@ -8,13 +8,14 @@ leading ``layers`` axis (the reference's tree layout, so weights cross 1:1)
 and applied by a Python loop over that axis where the reference scans; a
 partial remainder group (gemma3: 62 = 6*10 + 2) is applied explicitly.
 
-Blocks are attention (dense, GQA, local/global), RG-LRU (recurrentgemma,
-`repro_torch.models.rglru`) and mLSTM / sLSTM (xLSTM,
+Blocks are attention (dense, GQA, local/global) followed by an FFN or,
+for MoE archs, the routed experts (`repro_torch.models.moe`), RG-LRU
+(recurrentgemma, `repro_torch.models.rglru`) and mLSTM / sLSTM (xLSTM,
 `repro_torch.models.xlstm`).  Every attention call goes through
 `common.chunked_attention`, that is the hand-written flash-attention
 kernel; the RG-LRU scan and the mLSTM parallel form over a prompt launch
-their own hand-written kernels.  MoE raises NotImplementedError naming the
-ROADMAP item that ports it.
+their own hand-written kernels.  `attention_apply` also serves the
+encoder-decoder's cross-attention (`repro_torch.models.encdec`).
 
 Caches are written in place: `forward` with caches (prefill) and
 `decode_step` update the cache tensors they are given (KV caches and
@@ -39,12 +40,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import ParamDef
-
-_MOE_ITEM = ("MoE blocks (models/moe.py) are not ported yet: ROADMAP "
-             "queue 1 item 9")
 
 # ---------------------------------------------------------------------------
 # pattern machinery
@@ -106,24 +105,38 @@ def _proj(x, w, b=None):
 
 def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                     causal: bool = True, window: Optional[int] = None,
-                    cache: Optional[Dict] = None, pos: Optional[int] = None
+                    cache: Optional[Dict] = None, pos: Optional[int] = None,
+                    kv_source: Optional[torch.Tensor] = None,
+                    cross_cache_only: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (b, s, d). Modes:
       train:    cache=None                          -> (out, None)
       prefill:  cache={k,v empty (b,nkv,S,hd)}      -> (out, filled cache)
       decode:   cache filled, pos = current length  -> (out, updated cache)
+      cross:    kv_source = encoder states (keys and values projected from
+                them, no mask); cross_cache_only reads the precomputed
+                cross K/V in ``cache`` without reprojecting (decode)
     ``pos`` is a host int; the cache is updated in place.
     """
     b, s, d = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = _proj(x, p["wq"], p.get("bq")).reshape(b, s, nh, hd)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(b, s, nkv, hd)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(b, s, nkv, hd)
+    if cross_cache_only:
+        out = common.chunked_attention(
+            q.transpose(1, 2), cache["k"].to(x.dtype),
+            cache["v"].to(x.dtype), causal=False)
+        out = out.transpose(1, 2).reshape(b, s, nh * hd)
+        return _proj(out, p["wo"]), cache
+    src = kv_source if kv_source is not None else x
+    skv = src.shape[1]
+    k = _proj(src, p["wk"], p.get("bk")).reshape(b, skv, nkv, hd)
+    v = _proj(src, p["wv"], p.get("bv")).reshape(b, skv, nkv, hd)
 
     if cfg.rope_theta:
         qpos = torch.arange(s, device=x.device) + (pos or 0)
+        kpos = torch.arange(skv, device=x.device) if pos is None else qpos
         q = common.rope(q, qpos.expand(b, s), cfg.rope_theta)
-        k = common.rope(k, qpos.expand(b, s), cfg.rope_theta)
+        k = common.rope(k, kpos.expand(b, skv), cfg.rope_theta)
 
     q = q.transpose(1, 2)                             # (b, nh, s, hd)
     k = k.transpose(1, 2)
@@ -132,7 +145,9 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     kv_len = None
     q_off = 0
-    if cache is not None:
+    if kv_source is not None:
+        causal = False
+    elif cache is not None:
         W = cache["k"].shape[2]
         if pos is None:                                # prefill: write [0:s]
             kk, vv = k, v
@@ -192,19 +207,15 @@ def ffn_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _no_moe(cfg: ArchConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: {_MOE_ITEM}")
-
-
 def block_defs(cfg: ArchConfig, kind: str, attn_kind: str) -> Dict:
-    _no_moe(cfg)
     d = cfg.d_model
     if kind == "attn":
-        return {"ln1": common.norm_defs(cfg.norm_kind, d),
+        defs = {"ln1": common.norm_defs(cfg.norm_kind, d),
                 "attn": attention_defs(cfg),
-                "ln2": common.norm_defs(cfg.norm_kind, d),
-                "ffn": ffn_defs(cfg)}
+                "ln2": common.norm_defs(cfg.norm_kind, d)}
+        defs["moe" if cfg.is_moe else "ffn"] = (
+            moe_lib.moe_defs(cfg) if cfg.is_moe else ffn_defs(cfg))
+        return defs
     if kind == "rglru":
         return {"ln1": common.norm_defs(cfg.norm_kind, d),
                 "rec": rglru_lib.rglru_defs(cfg),
@@ -223,7 +234,6 @@ def block_cache(cfg: ArchConfig, kind: str, attn_kind: str, batch: int,
                 max_len: int, dtype: torch.dtype, device) -> Dict:
     """A block's decode cache: K/V in ``dtype`` for attention, the fp32
     recurrent state for the others (as the reference's)."""
-    _no_moe(cfg)
     if kind == "attn":
         # local-attention layers keep a ring buffer of exactly the window
         # (attention_apply wraps the write position)
@@ -261,7 +271,6 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     """Returns (x_out, new_cache, aux_loss).  Modes: train (no cache),
     prefill (cache given, no pos), decode (pos given); the cache is
     updated in place."""
-    _no_moe(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = common.norm(cfg.norm_kind, x, p["ln1"])
     if kind == "attn":
@@ -270,7 +279,11 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
                                        window=window, cache=cache, pos=pos)
         x = x + a
         h = common.norm(cfg.norm_kind, x, p["ln2"])
-        x = x + ffn_apply(p["ffn"], h, cfg)
+        if cfg.is_moe:
+            f, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        else:
+            f = ffn_apply(p["ffn"], h, cfg)
+        x = x + f
         x = common.logical(x, ("batch", "act_seq", "act_embed"))
         return x, new_cache, aux
     if kind == "rglru":

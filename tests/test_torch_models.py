@@ -11,6 +11,19 @@ of max |logit|.  KV caches are bfloat16 in both dtypes, so caches (and the
 fp32 recurrent states beside them) are held to one bfloat16 rounding step
 (1e-2 of max |value|) in float32 and to 3e-2 in bfloat16.
 
+MoE routing (the reduced qwen2-moe-a2.7b and qwen3-moe-30b-a3b, whose
+`hold_parity` runs from tests/test_torch_moe_models.py): in
+float32 every router call of the port takes the reference's experts.  In
+bfloat16 the router product is rounded to bfloat16 before its softmax,
+so a token whose k-th and (k+1)-th experts lie within a rounding of each
+other can take either, and one such token moves its own later values by
+far more than 3e-2.  There the port replays the reference's experts
+(``chip_smoke.moe_routing``; weights from its own probabilities) and is
+held as the other archs; its own routing is held on the forward, where
+at the first layer that parts from the reference's every expert it takes
+that the reference did not must lie within ``chip_smoke.NEAR_TIE`` of the
+one it left (from there the token is another token).
+
 The reduced xlstm-125m is chaotic in bfloat16: its mLSTM output divides by
 a denominator that can come near zero, so a one-rounding difference in a
 block's input can grow by orders of magnitude in an mLSTM block, and the
@@ -36,15 +49,29 @@ from repro.configs.base import get_config as ref_get_config
 from repro.configs.base import reduced as ref_reduced
 from repro.models import build_model as ref_build_model
 from repro.models import common as ref_common
+from repro.configs.base import ARCH_IDS as REF_ARCH_IDS
+from repro.launch import serve as ref_serve
 from repro.models import transformer as ref_tf
-from repro_torch.configs.base import get_config, reduced
-from repro_torch.models import build_model, common, transformer
+from repro_torch.configs.base import ARCH_IDS, get_config, reduced
+from repro_torch.launch import serve
+from repro_torch.models import build_model, common
 from repro_torch.models.convert import (cache_from_numpy, params_from_numpy,
                                         params_to_numpy)
+from repro_torch.tree import tree_leaves
+from moehelpers import reference_routes
+from soehelpers import chip_smoke
+
+CS = chip_smoke()
 
 PROMPT, STEPS, BATCH = 40, 8, 2
 ARCHS = ["qwen1.5-0.5b", "gemma3-27b", "recurrentgemma-2b", "xlstm-125m",
          "phi3-medium-14b", "mistral-large-123b", "internvl2-76b"]
+# the MoE archs' parity runs `hold_parity` from tests/test_torch_moe_models.py
+# (this file's item count sets its place in pytest-xdist's --dist loadfile
+# queue, which the reference's order-dependent tests depend on: ROADMAP
+# queue 3); every config's full-width tree is held by
+# test_unported_families_raise
+MOE_ARCHS = ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"]
 NOISY_BF16 = {"xlstm-125m"}     # chaotic in bfloat16: see the docstring
 
 
@@ -99,32 +126,50 @@ def _embeds(cfg):
 
 def _ref_run(ref_cfg, ref_params, toks):
     """The reference's forward logits, prefill caches, decode-step logits
-    and final caches (float32 numpy), and the prefill caches as they are."""
+    and final caches (float32 numpy), the prefill caches as they are, and
+    its MoE routers' experts in call order (forward, prefill, each step)."""
     ref_model = ref_build_model(ref_cfg)
     emb = _embeds(ref_cfg)
     emb = None if emb is None else jnp.asarray(emb)
     batch = {"tokens": jnp.asarray(toks)}
     if emb is not None:
         batch["embeds"] = emb
-    out = {"logits": ref_model.forward(ref_params, batch)[0]}
-    _, caches, _ = ref_tf.forward(
-        ref_params, jnp.asarray(toks[:, :PROMPT]), ref_cfg, embeds=emb,
-        caches=ref_tf.init_cache(ref_cfg, BATCH, PROMPT + STEPS))
-    out["prefill"] = caches
-    out["steps"] = []
-    for t in range(PROMPT, PROMPT + STEPS):
-        logits, caches = ref_tf.decode_step(
-            ref_params, caches, jnp.asarray(toks[:, t:t + 1]),
-            jnp.asarray(t, jnp.int32), ref_cfg)
-        out["steps"].append(logits)
+    with reference_routes() as routes:
+        out = {"logits": ref_model.forward(ref_params, batch)[0]}
+        _, caches, _ = ref_tf.forward(
+            ref_params, jnp.asarray(toks[:, :PROMPT]), ref_cfg, embeds=emb,
+            caches=ref_tf.init_cache(ref_cfg, BATCH, PROMPT + STEPS))
+        out["prefill"] = caches
+        out["steps"] = []
+        for t in range(PROMPT, PROMPT + STEPS):
+            logits, caches = ref_tf.decode_step(
+                ref_params, caches, jnp.asarray(toks[:, t:t + 1]),
+                jnp.asarray(t, jnp.int32), ref_cfg)
+            out["steps"].append(logits)
     out["decoded"] = caches
     raw = jax.tree.map(np.asarray, out["prefill"])     # bfloat16 kept
-    return jax.tree.map(lambda a: np.asarray(a, np.float32), out), raw
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), out), raw, \
+        routes
+
+
+def _port_routes(routes, n_layers):
+    """The reference's router calls in the port's order below: forward,
+    prefill, then each step twice (from its own caches and from the
+    reference's)."""
+    n = n_layers
+    steps = [routes[(2 + i) * n:(3 + i) * n] for i in range(STEPS)]
+    return routes[:2 * n] + [r for step in steps for r in step * 2]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_reference(arch, dtype):
+    hold_parity(arch, dtype)
+
+
+def hold_parity(arch, dtype):
+    """The port's forward, prefill caches and decode steps of the reduced
+    ``arch`` against the reference's (see the module docstring)."""
     ref_cfg, cfg = _cfgs(arch, dtype)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
@@ -132,10 +177,12 @@ def test_forward_prefill_decode_match_reference(arch, dtype):
     params = params_from_numpy(jax.tree.map(np.asarray, ref_params), "cpu")
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (BATCH, PROMPT + STEPS)).astype(np.int32)
-    want, ref_caches = _ref_run(ref_cfg, ref_params, toks)
+    want, ref_caches, routes = _ref_run(ref_cfg, ref_params, toks)
     truth = None
     if dtype == "bfloat16" and arch in NOISY_BF16:
         truth = _ref_run(_cfgs(arch, "float32")[0], ref_params, toks)[0]
+    expected = _port_routes(routes, cfg.n_layers) if cfg.is_moe else []
+    forced = expected if dtype == "bfloat16" else None
 
     def pick(key, i=None):
         if truth is None:
@@ -144,6 +191,23 @@ def test_forward_prefill_decode_match_reference(arch, dtype):
 
     emb = _embeds(cfg)
     extra = {} if emb is None else {"embeds": torch.from_numpy(emb)}
+    if forced:
+        with CS.moe_routing() as own:
+            model.forward(params, {"tokens": torch.from_numpy(toks)})
+        flips = CS.routing_flips(own.calls, routes[:cfg.n_layers])
+        assert all(m <= CS.NEAR_TIE
+                   for _, _, m in CS.first_divergence(flips)), flips
+    with CS.moe_routing(forced) as rec:
+        _hold_port_run(model, params, toks, extra, want, ref_caches, dtype,
+                       pick)
+    assert len(rec.calls) == len(expected)
+    if forced is None:
+        assert CS.routing_flips(rec.calls, expected) == []
+
+
+def _hold_port_run(model, params, toks, extra, want, ref_caches, dtype,
+                   pick):
+    cfg = model.cfg
     got = model.forward(params, {"tokens": torch.from_numpy(toks),
                                  **extra})[0]
     assert got.dtype == torch.float32
@@ -195,8 +259,12 @@ def _shapes(tree, is_leaf=None):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_matches_reference_at_full_width(arch):
+    _hold_tree(arch)
+
+
+def _hold_tree(arch):
     ref_defs = ref_build_model(ref_get_config(arch)).defs
-    defs = transformer.lm_defs(get_config(arch))
+    defs = build_model(get_config(arch), device="cpu").defs
     want = _shapes(ref_defs, is_leaf=ref_common.is_def)
     got = common.tree_map(lambda d: tuple(d.shape), defs)
     assert got == want
@@ -242,10 +310,24 @@ def test_tree_init_matches_reference_statistics():
 
 
 def test_unported_families_raise():
-    """MoE, the encoder-decoder and the LSTM baseline are still to port;
-    the recurrent families build (their parity is held above)."""
-    for arch in ("qwen2-moe-a2.7b", "whisper-large-v3", "paper-lm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(reduced(get_config(arch)), device="cpu")
-    for arch in ("recurrentgemma-2b", "xlstm-125m"):
-        build_model(reduced(get_config(arch)), device="cpu")
+    """Nothing is left unported: every config builds, at full width (its
+    tree the reference's, shapes, axes, inits and scales leaf for leaf)
+    and reduced, where its weights initialise; the LSTM baseline alone has
+    no decode path, and its decode functions and ``serve`` refuse as the
+    reference's do."""
+    archs = set(ARCH_IDS) | {"paper_lm"}
+    assert archs == set(REF_ARCH_IDS) | {"paper_lm"} and len(archs) == 11
+    for arch in sorted(archs):
+        cfg = get_config(arch)
+        _hold_tree(arch)
+        model = build_model(reduced(cfg), device="cpu")
+        assert tree_leaves(model.init(0))
+        assert model.has_decode == (cfg.family != "lstm")
+    model = build_model(reduced(get_config("paper-lm")), device="cpu")
+    for call in (lambda: model.init_cache(1, 4),
+                 lambda: model.decode_step({}, {}, None, 0)):
+        with pytest.raises(ValueError, match="no decode path"):
+            call()
+    for fn, kw in ((ref_serve.serve, {}), (serve.serve, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="paper-lm has no decode path"):
+            fn("paper-lm", batch=1, prompt_len=2, gen=1, **kw)

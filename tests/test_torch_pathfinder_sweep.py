@@ -10,7 +10,9 @@ queue 3).
 ``tests/test_torch_golden_sweep.npz`` holds the reference's rows of this
 grid, so that the card (which has no JAX) can be held to them
 (``chip_smoke.py`` phase 4).  Here the file is held to the reference
-(rtol 1e-6) and the port's host rows to the file (rtol 1e-5).
+(rtol 1e-6) and the port's host rows to the file (rtol 1e-5).  A sweep
+with a calibration ``profile`` (every hardware point and the PPE anchored
+to it) is held to the reference's on part of the grid.
 Regenerate it with
 
     REPRO_WRITE_GOLDEN=1 PYTHONPATH=src python -m pytest -q \\
@@ -107,3 +109,28 @@ def test_golden_file_is_the_references_rows(ref_sweep, golden):
 def test_port_host_rows_are_the_golden_files(port_sweep, golden):
     assert list(golden["labels"]) == [_label(p) for p in port_sweep.points]
     _close(_rows(port_sweep.points), golden["rows"])
+
+
+# a calibration profile (the JSON form `pathfind calibrate` writes) with
+# every efficiency and the kernel overhead away from its identity value
+PROFILE = {"version": 1, "tech": "tpu_v5e", "params": {
+    "compute_eff": 0.62, "dram_bw_eff": 0.71, "l2_bw_eff": 0.8,
+    "l1_bw_eff": 0.9, "l0_bw_eff": 0.95, "vector_eff": 0.43,
+    "kernel_overhead_s": 7e-6, "net_alpha_eff": 1.5, "net_beta_eff": 0.8}}
+
+
+def test_sweep_with_a_profile_matches_the_references():
+    grid = dict(GRID, arches=GRID["arches"][:1], logic_nodes=("N7", "N5"))
+    prev = compileahead.set_bucketing_default(False)
+    try:
+        want = ref_pf.sweep(**grid, cache=None, profile=PROFILE)
+    finally:
+        compileahead.set_bucketing_default(prev)
+    got = pathfinder.sweep(**grid, cache=None, profile=PROFILE,
+                           device="cpu")
+    plain = pathfinder.sweep(**grid, cache=None, device="cpu")
+    assert [_label(p) for p in got.points] == [_label(p) for p in want.points]
+    _close(_rows(got.points), _rows(want.points))
+    # the profile moved every point
+    assert (np.abs(_rows(got.points)[:, 0] / _rows(plain.points)[:, 0] - 1)
+            > 1e-3).all()

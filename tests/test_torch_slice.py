@@ -196,10 +196,18 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
                  grads={"flash_attention": cs.GRAD_CASES["flash_attention"][
                      :2], "rglru_scan": cs.GRAD_CASES["rglru_scan"][:2],
                      "mlstm_parallel": cs.GRAD_CASES["mlstm_parallel"][:2]})
+    # phase 8: the families reduced, at smoke size
+    families = dict(cs.FAMILIES, use_reduced=True,
+                    moe=dict(cs.FAMILIES["moe"], prefill=(2, 16),
+                             check_len=16),
+                    whisper=dict(cs.FAMILIES["whisper"], frames=(2, 24),
+                                 steps=4, train=(2, 24)),
+                    serve=dict(batch=2, prompt_len=4, gen=2))
     rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
                   dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
                   16, recurrent, steps=3, starts=2, search=search,
-                  runner=runner, deepflow=deepflow, train=train)
+                  runner=runner, deepflow=deepflow, train=train,
+                  families=families)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
     assert "strategy       RC-1-16-d16-p1" in out
@@ -222,7 +230,7 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     assert "decode_step" in out and "plan RC-1-1-d1-p1" in out
     assert "phase 6: recurrentgemma-2b-smoke" in out
     assert "phase 6: xlstm-125m-smoke" in out
-    assert out.count("Model.prefill (2, 16)") == 2
+    assert out.count("Model.prefill (2, 16)") == 3
     for name in ("flash_attention", "rglru_scan", "mlstm_parallel"):
         for dtype in ("float32", "bfloat16"):
             assert f"  {name} {dtype}: 2 cases, gradients within" in out
@@ -236,6 +244,14 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     for arch in cs.REMAT["archs"]:
         for remat in ("True", "'dots'"):
             assert f"  {arch}-smoke (2, 64) remat={remat}: loss rel" in out
+    for case in cs.FAMILY_GOLDEN["cases"]:
+        for dtype in ("float32", "bfloat16"):
+            assert f"  {case}/{dtype}: " in out
+    assert "phase 8 (b): qwen2-moe-a2.7b-smoke" in out
+    assert "drop 0 assignments" in out and "vs every expert densely" in out
+    assert "phase 8 (c): whisper-large-v3-smoke" in out
+    assert "4 decode steps from the prefill vs a forward" in out
+    assert out.count("Model.prefill") == 4
     assert [r["name"] for r in rows] == ["gemm", "flash_attention",
                                          "rglru_scan", "mlstm_parallel"]
     assert [r["backward"] for r in rows] == [
