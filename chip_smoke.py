@@ -82,8 +82,20 @@ at full width):
                axes uncalibrated on card and host, the card's records
                held to the host's and, for two archs, to the
                reference's own in ``tests/test_torch_golden_runner.jsonl``
-               (1e-4); fleet sizing over the card's directory printing
-               the host's text; points/s of every sweep on both; (e)
+               (1e-4), each through the default pipelined executor
+               (``--backend auto``); the executors against those
+               pipeline directories: every scenario on ``--backend
+               serial`` on card and host (``spec.json`` and
+               ``checkpoint.jsonl`` the same bytes, records within 1e-4),
+               a serial run stopped half way and resumed on the pipeline,
+               ``--frontier-only`` of every scenario (exactly the keys of
+               ``pareto_records`` over the full directory) and one stopped
+               and resumed from ``frontier_state.npz``, ``--backend
+               thread`` and ``process`` on the train scenario of the
+               golden archs, and one profiled pipeline superbatch of two
+               chunks (idle share, launches); fleet
+               sizing over the card's directory printing the host's
+               text; points/s of every sweep and backend on both; (e)
                DeepFlow's search: ``pathfind soe`` for qwen1.5-0.5b x
                train_4k on 64 devices at the reference's defaults on
                card and host (the same strategy and queries, the batched
@@ -1253,9 +1265,9 @@ def runner_argv(scenario: str, runner: dict = RUNNER) -> list:
             *runner["axes"], *runner["scenarios"][scenario]]
 
 
-_SWEEP_LINE = re.compile(r"# sweep\[[^\]]+\] backend=serial: (\d+) points in "
-                         r"(\d+) chunks; skipped (\d+) checkpointed, "
-                         r"evaluated (\d+) \((\d+) points\)")
+_SWEEP_LINE = re.compile(r"# sweep\[[^\]]+\](?: frontier-only)? backend=\w+: "
+                         r"(\d+) points in (\d+) chunks; skipped (\d+) "
+                         r"checkpointed, evaluated (\d+) \((\d+) points\)")
 
 
 def _cli(argv, ok=(0,)):
@@ -1391,6 +1403,7 @@ def phase_runner(device, runner: dict, workdir: Path,
     # 2. every scenario, uncalibrated: card against host, and the records
     #    of the golden archs against the reference's own
     golden = {}
+    rates = {k: {} for k in where}      # points/s per place and run
     for rec in _jsonl(GOLDEN_RUNNER):
         golden.setdefault(rec.pop("scenario"), []).append(rec)
     for scenario in runner["scenarios"]:
@@ -1400,6 +1413,7 @@ def phase_runner(device, runner: dict, workdir: Path,
             _, _, err, dt = _cli(runner_argv(scenario, runner) + [
                 "--out", d, "--device", dev])
             n_points = _sweep_counts(err)[0]
+            rates[k][scenario] = n_points / dt
             print(f"  {scenario} on {torch.device(dev).type}: {n_points} "
                   f"points in {dt:.3f}s = {n_points / dt:.1f} points/s"
                   + (f"  [{card}]" if k == "card" else ""))
@@ -1414,7 +1428,11 @@ def phase_runner(device, runner: dict, workdir: Path,
         print(f"  {scenario}: {len(recs['card'])} records held to the "
               f"host's, {len(want)} to {GOLDEN_RUNNER.name}")
 
-    # 3. fleet sizing over the card-written directory and the host's
+    # 3. the other backends and the streaming frontier against (2)'s
+    #    pipeline directories
+    phase_backends(device, runner, workdir, rates)
+
+    # 4. fleet sizing over the card-written directory and the host's
     # (exit 1: no design meets the walls); the same exit code and plan
     outs = {k: _cli(["size", "--from", dirs[k], *runner["size"]],
                     ok=(0, 1))[:2] for k in where}
@@ -1425,6 +1443,163 @@ def phase_runner(device, runner: dict, workdir: Path,
           f"{rc}, {max(len(text.splitlines()) - 1, 0)} fleet plans; the "
           f"card's directory prints the host's text"
           + ("" if exact else " within the last printed digit"))
+
+
+def _by_chunk(path: Path) -> list:
+    """A results.jsonl's records in chunk order without their chunk tags
+    (the thread and process backends commit chunks as they complete)."""
+    recs = _jsonl(path)
+    order = sorted(range(len(recs)), key=lambda i: (recs[i]["chunk"], i))
+    return [{k: v for k, v in recs[i].items() if k != "chunk"}
+            for i in order]
+
+
+def phase_backends(device, runner: dict, workdir: Path,
+                   rates: dict) -> None:
+    """Phase 4 (d), the executors: (i) every scenario on ``--backend
+    serial`` on card and host, its ``spec.json`` and ``checkpoint.jsonl``
+    the pipeline's bytes and its records the pipeline's, with the points/s
+    of both backends; (ii) a serial run stopped half way, resumed on the
+    pipeline; (iii) ``--frontier-only`` of every scenario against the
+    pipeline directory's ``pareto_records``, and one stopped and resumed
+    from ``frontier_state.npz``; (iv) the thread and process pools on the
+    train scenario over the golden archs; (v) one profiled superbatch.  ``rates`` holds (2)'s
+    pipeline points/s per place and scenario; this phase adds the rest."""
+    import torch
+    from repro_torch.core import sweeppipeline, sweeprunner
+    card = card_line() if device.type == "cuda" else "host rehearsal"
+    where = {"card": str(device), "host": "cpu"}
+    print("-- (d) the executors: --backend serial|thread|process, "
+          "--frontier-only")
+    t0 = time.perf_counter()
+
+    def sweep(scenario, out, dev, *flags):
+        _, _, err, dt = _cli(runner_argv(scenario, runner) + [
+            "--out", out, "--device", dev, *flags])
+        return _sweep_counts(err), dt
+
+    # (i) serial against the pipeline, every scenario, card and host
+    for scenario in runner["scenarios"]:
+        for k, dev in where.items():
+            pipe = workdir / f"{scenario}-{k}"
+            d = workdir / f"{scenario}-{k}-serial"
+            counts, dt = sweep(scenario, d, dev, "--backend", "serial")
+            rates[k][f"{scenario} serial"] = counts[0] / dt
+            for name in ("spec.json", "checkpoint.jsonl"):
+                assert (d / name).read_bytes() == \
+                    (pipe / name).read_bytes(), (scenario, k, name)
+            _held_records(_by_chunk(d / "results.jsonl"),
+                          _by_chunk(pipe / "results.jsonl"),
+                          f"{scenario} on {k}: serial against pipeline")
+            print(f"  {scenario} --backend serial on "
+                  f"{torch.device(dev).type}: {counts[0]} points in "
+                  f"{dt:.3f}s = {counts[0] / dt:.1f} points/s; spec.json "
+                  f"and checkpoint.jsonl the pipeline's bytes, records "
+                  f"held to its own" + (f"  [{card}]" if k == "card" else ""))
+    pipe = workdir / "train-card"
+
+    # (ii) serial stopped half way, resumed on the pipeline
+    d = workdir / "train-serial-resumed"
+    n_chunks = len((pipe / "checkpoint.jsonl").read_text().splitlines())
+    half = n_chunks // 2
+    counts, _ = sweep("train", d, where["card"], "--backend", "serial",
+                      "--max-chunks", half)
+    assert counts[2:4] == (0, half), counts
+    _, _, err, dt2 = _cli(["sweep", "--out", d, "--resume", "--device",
+                           where["card"]])
+    counts = _sweep_counts(err)
+    assert "backend=pipeline" in err and \
+        counts[2:4] == (half, n_chunks - half), (counts, err)
+    for name in ("spec.json", "checkpoint.jsonl"):
+        assert (d / name).read_bytes() == (pipe / name).read_bytes(), name
+    _held_records(_by_chunk(d / "results.jsonl"),
+                  _by_chunk(pipe / "results.jsonl"),
+                  "train: serial then pipeline against pipeline")
+    print(f"  train: --backend serial for {half} chunks, then --resume on "
+          f"the pipeline: skipped {half}, evaluated {n_chunks - half} (zero "
+          f"re-evaluated), directory the pipeline's  [{card}]")
+
+    # (iii) the streaming frontier: each scenario against pareto_records
+    # over (2)'s card directory, one stopped and resumed
+    for scenario in runner["scenarios"]:
+        d = workdir / f"{scenario}-frontier"
+        counts, dt = sweep(scenario, d, where["card"], "--frontier-only")
+        spec, recs = sweeprunner.load_sweep(str(workdir /
+                                                f"{scenario}-card"))
+        objectives = spec.scenario_spec.variants()[0].resolve().objectives
+        want = sweeprunner.pareto_records(recs, objectives)
+        got = _jsonl(d / "frontier.jsonl")
+        assert want and sorted(r["key"] for r in got) == \
+            sorted(r["key"] for r in want), scenario
+        by_key = {r["key"]: r for r in got}
+        _held_records([by_key[r["key"]] for r in want], want,
+                      f"{scenario}: frontier against pareto_records")
+        rates["card"][f"{scenario} frontier-only"] = counts[0] / dt
+        print(f"  {scenario} --frontier-only on {device.type}: {counts[0]} "
+              f"points in {dt:.3f}s = {counts[0] / dt:.1f} points/s; "
+              f"{len(got)} frontier records, the full sweep's "
+              f"pareto_records over {'/'.join(objectives)}  [{card}]")
+    d = workdir / "traffic-frontier-resumed"
+    full = workdir / "serving-traffic-frontier"
+    counts, _ = sweep("serving-traffic", d, where["card"], "--frontier-only",
+                      "--max-chunks", half)
+    assert (d / "frontier_state.npz").is_file() and counts[3] == half
+    _, _, err, _ = _cli(["sweep", "--out", d, "--resume", "--frontier-only",
+                         "--device", where["card"]])
+    counts = _sweep_counts(err)
+    assert counts[2] == half and counts[2] + counts[3] == counts[1], counts
+    assert _jsonl(d / "frontier.jsonl") == _jsonl(full / "frontier.jsonl")
+    print(f"  serving-traffic --frontier-only stopped after {half} chunks, "
+          f"resumed from frontier_state.npz: skipped {half}, evaluated "
+          f"{counts[3]}, the uninterrupted frontier  [{card}]")
+
+    # (iv) the pools on the train scenario over the golden archs (their
+    # start-up, not the sweep, is what they add), each record the
+    # pipeline's of the same key
+    pools = dict(runner, arches=runner["golden_arches"])
+    by_key = {r["key"]: r for r in _by_chunk(pipe / "results.jsonl")}
+    for backend, workers in (("thread", 2), ("process", 2)):
+        d = workdir / f"train-{backend}"
+        _, _, err, dt = _cli(runner_argv("train", pools) + [
+            "--out", d, "--device", where["card"], "--backend", backend,
+            "--workers", workers])
+        counts = _sweep_counts(err)
+        assert counts[3] == counts[1] and f"backend={backend}:" in err
+        rates["card"][f"train {backend}"] = counts[0] / dt
+        got = _by_chunk(d / "results.jsonl")
+        assert sorted(json.loads(x)["chunk"] for x in (
+            d / "checkpoint.jsonl").read_text().splitlines()) == \
+            list(range(counts[1]))
+        _held_records(got, [by_key[r["key"]] for r in got],
+                      f"train: {backend} against pipeline")
+        print(f"  train (golden archs) --backend {backend} --workers "
+              f"{workers} on {device.type}: {counts[0]} points in "
+              f"{dt:.3f}s = {counts[0] / dt:.1f} points/s; every chunk "
+              f"once, the pipeline's records  [{card}]")
+
+    # (v) one superbatch of two chunks on the card, profiled: its idle
+    # share and launches (a whole-sweep superbatch is ~135,000 launches,
+    # too many events for the profiler's time here)
+    if device.type == "cuda":
+        spec, _ = sweeprunner.load_sweep(str(workdir / "train-card"))
+        ex = sweeppipeline.PipelineExecutor(
+            spec, cache=None, superbatch=2 * spec.chunk_size, device=device)
+        chunks = sweeprunner.make_chunks(sweeprunner.enumerate_labels(spec),
+                                         spec.chunk_size)
+        pack = ex.pack(ex._pack_slices(chunks)[0])
+        n = sum(len(c.labels) for c in pack.chunks)
+
+        def superbatch():
+            ex.dispatch(pack)
+            return ex.finalize(pack)
+        superbatch()
+        _device_profile(superbatch, 1, f"pipeline superbatch of {n} designs "
+                        f"in {len(pack.groups)} groups")
+    print(f"# phase 4 (d), the executors: {time.perf_counter() - t0:.2f}s")
+    for k in where:
+        print(f"  points/s on {k}: " + ", ".join(
+            f"{name} {rate:.1f}" for name, rate in rates[k].items())
+            + (f"  [{card}]" if k == "card" else ""))
 
 
 class _Spy:

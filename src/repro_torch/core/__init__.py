@@ -12,12 +12,15 @@
     pathfinder  batched evaluation (torch.func.vmap over predict), the
                 prediction cache, Pareto front, in-memory sweep
     planner     CrossFlow -> runtime: the sharding plan for a mesh
-    scenarios   memory accounting (kv_cache_bytes; the folds come later)
-    sweepexec   the JSONL reader/writer pair of the record files
+    scenarios   the scenario registry: memory accounting, eval points,
+                record, metrics, refine and frontier folds
+    sweepexec   the JSONL reader/writer pair of the record files, the
+                chunk journal, the frontier-state checkpoints
+    sweeprunner the chunked, resumable sweep runner and its backends
+    sweeppipeline  the pipelined executor (the runner's default) and the
+                device-resident streaming frontier
+    soe, cooptimize  DeepFlow's search: eq.-6 descent, sweep -> refine
     tensors     float32 scalar helpers mirroring jax.numpy's weak typing
-
-The rest of the DeepFlow search layers (soe, the sweep runner,
-cooptimize) come with later slices of the port.
 """
 
 from repro_torch.core import age, graph, lmgraph, parallelism, pathfinder, \

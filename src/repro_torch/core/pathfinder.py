@@ -16,7 +16,11 @@ numeric leaves, so:
     without per-point MicroArch objects;
   * `evaluate` is the facade (points, label and matrix modes); `sweep`
     cross-products arches x shape cells x mesh shapes x techlib nodes and
-    returns every point, with `pareto_front` and `hypervolume` over them.
+    returns every point, with `pareto_front` and `hypervolume` over them;
+  * `frontier_init` / `frontier_merge` carry a streaming Pareto frontier
+    on the device across batches (``pathfind sweep --frontier-only``,
+    `core/sweeppipeline.py`); `frontier_unpack` and the unbounded
+    host-side `frontier_merge_states` read and combine such states.
 
 Everything runs on the device the caller names, the card unless it asks
 for ``"cpu"``; the points of one batch must all live there.  The rows are
@@ -29,12 +33,11 @@ than the model, and where each goes (ROADMAP queue 1):
 
   * the compiled-function caches (``CompiledEntry``, ``pin_compiled``,
     ``compile_cache_stats``, ``clear_compiled_caches``) and cross-design
-    bucketing: item 11 decides on a torch counterpart (``compileahead``);
-    nothing here is compiled, so nothing is cached but rows (and
-    `evaluate_budgets`' vmapped functions, per skeleton);
+    bucketing: item 11 (b) decides on a torch counterpart
+    (``compileahead``); nothing here is compiled, so nothing is cached
+    but rows (and `evaluate_budgets`' vmapped functions, per skeleton);
   * ``shard_devices`` and ``evaluate_matrix(devices > 1)``: item 9
     (parallelism).  One card is one device; asking for more raises;
-  * the device-resident streaming frontier (``frontier_*``): item 11;
   * `sweep`'s ``strategies_fn`` hook, which nothing sets;
   * `PredictionCache`'s one-key ``get`` / ``put``: the evaluator looks up
     and inserts a batch at a time (``get_many`` / ``put_many``).
@@ -51,6 +54,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import math
 import threading
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -700,6 +704,180 @@ def hypervolume(vals, ref) -> float:
         return total
 
     return hv(v, ref)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident streaming Pareto frontier (carried across chunks)
+# ---------------------------------------------------------------------------
+
+# Default capacity of the carried frontier state (number of non-dominated
+# candidates held on device).  Real sweep frontiers are tiny next to the
+# point count; overflow is detected and reported, never silent.
+FRONTIER_CAPACITY = 512
+
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def frontier_init(capacity: int, n_obj: int, payload_dim: int,
+                  device=None) -> Tuple[torch.Tensor, ...]:
+    """Empty carried frontier state for `frontier_merge`, on ``device``
+    (the card unless the caller asks for ``"cpu"``).
+
+    ``(vals, payload, idx, overflow)``: objective rows (+inf = empty slot),
+    an opaque per-point payload (the raw metric rows, so surviving records
+    can be rebuilt without ever materializing the full sweep), the global
+    point index (-1 = empty), and a scalar count of finite candidates that
+    were dropped because the frontier outgrew ``capacity``.
+    """
+    dev = resolve_device(device)
+    return (torch.full((capacity, n_obj), math.inf, dtype=F32, device=dev),
+            torch.zeros((capacity, payload_dim), dtype=F32, device=dev),
+            torch.full((capacity,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``np.lexsort(keys)`` on the keys' device: the LAST key is primary.
+    One stable sort per key, from the first (least significant) key to
+    the last, each reordering the permutation the previous ones left."""
+    order = torch.sort(keys[0], stable=True).indices
+    for k in keys[1:]:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def frontier_merge(state: Tuple, vals, payload, idx
+                   ) -> Tuple[torch.Tensor, ...]:
+    """One streaming-skyline step: merge a batch into the carried state.
+
+    Runs on the state's device with no host synchronization (the pipelined
+    executor calls it behind the batched evaluation, so the state never
+    leaves the card between superbatches).  Dominance follows
+    `pareto_front`: a candidate is dropped iff some other candidate is <=
+    on all objectives and < on at least one; exact ties never dominate
+    each other, and rows with any non-finite objective (infeasible points,
+    padding, empty slots) or idx -1 never enter the frontier.  A carried
+    point can still be evicted by a later batch — the state always holds
+    the skyline of everything seen so far, truncated to capacity in full
+    lexicographic order (all objectives, then global point index;
+    ``overflow`` counts what the truncation dropped).  The full-lex key
+    makes the kept set a canonical function of the surviving point set —
+    independent of how points are arranged across state slots and batch
+    rows — because a dominator always sorts strictly before anything it
+    dominates, and the point index breaks exact-tie races
+    deterministically.  (Which points *survive* can still depend on merge
+    history once overflow drops a future dominator — any bounded streaming
+    skyline has that limit, which is why ``overflow > 0`` flags the
+    frontier as inexact and cross-state merges use the unbounded
+    `frontier_merge_states` instead.)
+    """
+    svals, spay, sidx, overflow = state
+    dev = svals.device
+    capacity = svals.shape[0]
+    av = torch.cat([svals, torch.as_tensor(vals, dtype=F32, device=dev)])
+    ap = torch.cat([spay, torch.as_tensor(payload, dtype=F32, device=dev)])
+    ai = torch.cat([sidx, torch.as_tensor(idx, dtype=torch.int32,
+                                          device=dev)])
+    finite = torch.isfinite(av).all(dim=1) & (ai >= 0)
+    # pairwise dominance: dominated[i] iff some finite j <= i on all
+    # objectives and < on one ((CAP+B)^2 x K compares, on the device)
+    le = (av[None, :, :] <= av[:, None, :]).all(dim=-1)
+    lt = (av[None, :, :] < av[:, None, :]).any(dim=-1)
+    dominated = (le & lt & finite[None, :]).any(dim=1)
+    keep = finite & ~dominated
+    # survivors first in full lex order (objectives, then point index),
+    # empties pushed to +inf / INT32_MAX; + 0.0 makes -0.0 and 0.0 one key
+    masked = torch.where(keep[:, None], av, math.inf) + 0.0
+    idx_key = torch.where(keep, ai, _INT32_MAX)
+    order = _lexsort([idx_key] + [masked[:, k] for k in
+                                  range(av.shape[1] - 1, -1, -1)])
+    n_keep = keep.sum(dtype=torch.int32)
+    kept_beyond = n_keep - torch.clamp(n_keep, max=capacity)
+    order = order[:capacity]
+    mask = keep[order]
+    return (torch.where(mask[:, None], av[order], math.inf),
+            torch.where(mask[:, None], ap[order], 0.0),
+            torch.where(mask, ai[order], -1).to(torch.int32),
+            overflow + kept_beyond)
+
+
+def frontier_host(state: Tuple) -> Tuple[np.ndarray, ...]:
+    """A carried frontier state as host arrays, in the reference's dtypes
+    (float32 vals and payload, int32 idx, a 0-d int32 overflow): what
+    `sweepexec.save_frontier_state` writes."""
+    return tuple(x.detach().cpu().numpy() if torch.is_tensor(x)
+                 else np.asarray(x) for x in state)
+
+
+def frontier_unpack(state: Tuple) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray, int]:
+    """Pull a carried frontier state to host -> (vals, payload, idx,
+    n_overflowed) with empty slots stripped."""
+    vals, payload, idx, overflow = frontier_host(state)
+    live = idx >= 0
+    return (vals[live].astype(np.float64), payload[live], idx[live],
+            int(overflow))
+
+
+def frontier_merge_states(a: Tuple, b: Tuple) -> Tuple[np.ndarray, ...]:
+    """Merge two carried frontier states host-side — the cross-state
+    reduction (the reference's sweep fabric merges its workers' states
+    with it).
+
+    Unlike the streaming `frontier_merge`, this merge is **unbounded**: it
+    dedupes by global point index (the same point checkpointed twice is
+    one point), drops dominated points with the exact f32 semantics of the
+    device merge, and keeps EVERY survivor, growing the state instead of
+    truncating to a capacity.  That makes the live set exactly
+    commutative, associative, and idempotent — any merge order over any
+    partition of states yields the same frontier.  The inputs' overflow
+    counters are summed through, so ``overflow > 0`` still flags that some
+    input was inexact.
+
+    Slot layout of the result is canonical: survivors in full
+    lexicographic order (objectives, then point index), padded to the
+    larger input's capacity.  States must agree on objective and payload
+    dimensions (same sweep spec).
+    """
+    av, ap, ai, ao = frontier_host(a)
+    bv, bp, bi, bo = frontier_host(b)
+    if av.shape[1:] != bv.shape[1:] or ap.shape[1:] != bp.shape[1:]:
+        raise ValueError(
+            f"frontier states disagree on objective/payload shape: "
+            f"{av.shape[1:]}/{ap.shape[1:]} vs {bv.shape[1:]}/"
+            f"{bp.shape[1:]} — were they produced by the same spec?")
+    vals = np.concatenate([av, bv]).astype(np.float32)
+    pay = np.concatenate([ap, bp]).astype(np.float32)
+    idx = np.concatenate([ai, bi]).astype(np.int32)
+    live = (idx >= 0) & np.all(np.isfinite(vals), axis=1)
+    # dedupe by global point index: re-merging a state that already holds
+    # a point must be a no-op (the duplicate rows are the same evaluated
+    # point, so which copy survives is immaterial)
+    first: Dict[int, int] = {}
+    for k in np.flatnonzero(live):
+        first.setdefault(int(idx[k]), int(k))
+    ks = np.asarray(sorted(first.values()), dtype=np.int64)
+    n = len(ks)
+    cap = max(av.shape[0], bv.shape[0], n)
+    overflow = np.asarray(int(ao) + int(bo), dtype=np.int32)
+    if n:
+        v = vals[ks]
+        le = np.all(v[None, :, :] <= v[:, None, :], axis=-1)
+        lt = np.any(v[None, :, :] < v[:, None, :], axis=-1)
+        ks = ks[~np.any(le & lt, axis=1)]
+        # canonical slot order: full lex (objectives, then point index)
+        v = vals[ks]
+        order = np.lexsort((idx[ks],) + tuple(
+            v[:, k] for k in range(v.shape[1] - 1, -1, -1)))
+        ks = ks[order]
+        n = len(ks)
+    out_v = np.full((cap, vals.shape[1]), np.inf, dtype=np.float32)
+    out_p = np.zeros((cap, pay.shape[1]), dtype=np.float32)
+    out_i = np.full((cap,), -1, dtype=np.int32)
+    out_v[:n] = vals[ks]
+    out_p[:n] = pay[ks]
+    out_i[:n] = idx[ks]
+    return out_v, out_p, out_i, overflow
 
 
 # ---------------------------------------------------------------------------

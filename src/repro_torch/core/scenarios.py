@@ -26,10 +26,10 @@ attention GEMMs already charge KV *bandwidth* per step).
 The folds here are the reference's host folds, in float64 numpy, line for
 line: `Scenario.record` and `Scenario.metrics_fold` fed the same metric
 rows and hardware give the reference's records bit for bit.
-`Scenario.refine_objectives`, cooptimize's differentiable fold, is the
-reference's over tensors (its array module ``xp`` is `tensors.XP`);
-`Scenario.frontier_fold` (the device-resident streaming frontier, ROADMAP
-queue 1 item 11) is not ported yet and raises ``NotImplementedError``.
+`Scenario.refine_objectives`, cooptimize's differentiable fold, and
+`Scenario.frontier_fold`, the device-resident streaming frontier's
+objective fold, are the reference's over float32 tensors (their array
+module ``xp`` is `tensors.XP`).
 The checkpoint and failure timings the goodput objective reads come from
 the port's `repro_torch.checkpoint.manager` and `repro_torch.runtime.fault`,
 as the reference's come from its modules of those names.
@@ -53,7 +53,7 @@ from repro_torch.core.graph import ComputeGraph
 from repro_torch.core.parallelism import Strategy
 from repro_torch.core.pathfinder import EvalPoint
 from repro_torch.core.placement import SystemGraph
-from repro_torch.core.tensors import XP, div
+from repro_torch.core.tensors import XP, as_f32, div
 from repro_torch.runtime import fault
 
 DTYPE_BYTES = 2                     # bf16 weights / KV cache
@@ -380,6 +380,37 @@ class Scenario:
             return tuple(s * vals[f] for s, f in zip(signs, fields))
         return fold
 
+    def _custom_frontier_fold(self, cfg: ArchConfig, strategy: Strategy,
+                              values_fn):
+        """Traced frontier fold over a composed objective set.
+
+        ``values_fn(xp, rows, ctx) -> (values, ok)`` supplies the base
+        objective/unit values from one design's metric rows (ctx already
+        holds the hardware coefficients + per-design consts); composed
+        registry objectives are evaluated on top, canonical signs applied
+        (max-direction negated), and everything outside the feasible/SLO
+        region masks to +inf so the device Pareto merge excludes it.
+        ``xp`` is `tensors.XP`.
+        """
+        from repro_torch.core import pathfinder
+        idx = {k: pathfinder.HW_FIELDS.index(k)
+               for k in self._CTX_HW_KEYS}
+        consts = self._objective_consts(cfg, strategy)
+        extras = self.extra_objectives
+        names = self.objectives
+        signs = objectives_lib.canonical_signs(names)
+
+        def fold(rows, hw_vec):
+            ctx: Dict[str, object] = {k: hw_vec[i] for k, i in idx.items()}
+            ctx.update(consts)
+            values, ok = values_fn(XP, rows, ctx)
+            ctx.update(values)
+            objectives_lib.evaluate(XP, extras, ctx)
+            return XP.stack([XP.where(ok, s * as_f32(ctx[n], rows.device),
+                                      XP.inf)
+                             for s, n in zip(signs, names)])
+        return fold
+
     def cells(self, cfg: ArchConfig) -> Tuple[str, ...]:
         """Shape cells this scenario needs for one architecture."""
         raise NotImplementedError
@@ -438,23 +469,20 @@ class Scenario:
 
     def frontier_fold(self, cfg: ArchConfig, strategy: Strategy):
         """Traceable objective fold for the device-resident streaming
-        frontier (``repro.core.sweeppipeline`` in the reference,
-        ``pathfind sweep --frontier-only``).
+        frontier (`repro_torch.core.sweeppipeline`, ``pathfind sweep
+        --frontier-only``).
 
-        Returns ``fold(rows, hw_vec) -> (n_obj,) vector`` mapping one
-        design's ``(points_per_design, 5)`` metric rows and its packed
+        Returns ``fold(rows, hw_vec) -> (n_obj,) float32 tensor`` mapping
+        one design's ``(points_per_design, 5)`` metric rows and its packed
         hardware vector (`pathfinder.HW_FIELDS` order) to the FULL
-        `objectives` tuple — fused into the compiled eval fn, so frontier
-        sweeps never pull per-point rows to host.  Must mirror
-        `objective_values` exactly: an infeasible/unusable record maps to
-        a non-finite objective (the frontier merge excludes it).
-
-        Not ported yet: it comes with the pipelined executor and
-        ``--frontier-only`` (ROADMAP queue 1 item 11), its only consumer.
+        `objectives` tuple, canonically signed — ``torch.func.vmap``ped
+        behind the batched evaluation on the device, so frontier sweeps
+        never pull per-point rows to host.  Must mirror `objective_values`
+        exactly: an infeasible/unusable record maps to a non-finite
+        objective (the frontier merge excludes it).  ``None`` = this
+        scenario has no device fold (frontier-only unsupported).
         """
-        raise NotImplementedError(
-            f"{self.name}: frontier_fold (the device-resident streaming "
-            f"frontier) is not ported yet (ROADMAP queue 1 item 11)")
+        return None
 
     def metrics_fold(self, cfg: ArchConfig, strategy: Strategy, cell_id):
         """Host-side vectorized fold for the pipelined executor's record
@@ -535,6 +563,24 @@ class TrainScenario(Scenario):
 
         def fold(bds, ctx):
             return (bds[0].total_s,)               # step time; devices fixed
+        return fold
+
+    def frontier_fold(self, cfg: ArchConfig, strategy: Strategy):
+        devices = float(strategy.devices)
+        if self._custom:
+            tokens = self._step_tokens()
+
+            def values_fn(xp, rows, ctx):
+                t = rows[0, 0]
+                return ({"time_s": t, "devices": devices,
+                         "step_time_s": t, "step_compute_s": rows[0, 1],
+                         "step_comm_s": rows[0, 2],
+                         "base_tokens_per_s": div(tokens, t)},
+                        xp.isfinite(t))
+            return self._custom_frontier_fold(cfg, strategy, values_fn)
+
+        def fold(rows, hw_vec):
+            return XP.stack([rows[0, 0], devices])
         return fold
 
     def metrics_fold(self, cfg: ArchConfig, strategy: Strategy, cell_id):
@@ -657,6 +703,44 @@ class ServingScenario(Scenario):
                 * roofline.capacity_pressure_derate_soft(occ)
             ttft = bds[0].total_s
             return (ttft, div(devices * tpot, batch))   # (ttft_s, cost/token)
+        return fold
+
+    def frontier_fold(self, cfg: ArchConfig, strategy: Strategy):
+        from repro_torch.core import pathfinder, roofline
+        cell = SHAPE_CELLS[self.decode_cell]
+        w_dev, kv_dev = serving_bytes_per_device(cfg, strategy, cell)
+        devices = float(strategy.devices)
+        batch = float(cell.global_batch)
+        knee = roofline.CAPACITY_PRESSURE_KNEE
+        cap_i = pathfinder.HW_FIELDS.index("dram_capacity")
+
+        def derated(xp, rows, capacity):
+            # the exact (hard-walled) capacity derate of `record` /
+            # `simulate.serving_breakdown` over tensors: an infeasible
+            # point's decode step is +inf
+            occ = div(w_dev + kv_dev, xp.maximum(capacity, 1.0))
+            over = div(xp.maximum(occ - knee, 0.0), max(1.0 - knee, 1e-9))
+            derate = xp.where(occ >= 1.0, xp.inf, 1.0 + 0.5 * over * over)
+            return rows[1, 0] * derate
+
+        if self._custom:
+            def values_fn(xp, rows, ctx):
+                ttft = rows[0, 0]
+                tpot = derated(xp, rows, ctx["dram_capacity"])
+                cost = div(devices * tpot, max(batch, 1.0))
+                ok = xp.isfinite(tpot) & xp.isfinite(ttft)
+                return ({"ttft_s": ttft, "tpot_s": tpot,
+                         "cost_device_s_per_token": cost,
+                         "token_compute_s": div(rows[1, 1], max(batch, 1.0)),
+                         "token_comm_s": div(rows[1, 2], max(batch, 1.0)),
+                         "device_s_per_token": cost,
+                         "base_tokens_per_s": div(batch, tpot)}, ok)
+            return self._custom_frontier_fold(cfg, strategy, values_fn)
+
+        def fold(rows, hw_vec):
+            tpot = derated(XP, rows, hw_vec[cap_i])
+            cost = div(devices * tpot, batch) if batch else XP.inf
+            return XP.stack([rows[0, 0], cost])
         return fold
 
     def metrics_fold(self, cfg: ArchConfig, strategy: Strategy, cell_id):
@@ -871,6 +955,52 @@ class ServingTrafficScenario(ServingScenario):
             barrier = 1.0 + 1e3 * wall * wall
             return (st["ttft_p99_s"] * barrier,
                     st["cost_device_s_per_token"] * barrier)
+        return fold
+
+    def frontier_fold(self, cfg: ArchConfig, strategy: Strategy):
+        from repro_torch.core import pathfinder, roofline
+        cell = SHAPE_CELLS[self.decode_cell]
+        w_dev, kv_dev = serving_bytes_per_device(cfg, strategy, cell)
+        w_f, kv_f = float(w_dev), float(kv_dev)
+        knee = roofline.CAPACITY_PRESSURE_KNEE
+        cap_i = pathfinder.HW_FIELDS.index("dram_capacity")
+        c = self._consts(float(strategy.devices))
+        slo = self.slo
+
+        def stats(xp, rows, capacity):
+            occ = div(w_f + kv_f, xp.maximum(capacity, 1.0))
+            over = div(xp.maximum(occ - knee, 0.0), max(1.0 - knee, 1e-9))
+            derate = xp.where(occ >= 1.0, xp.inf, 1.0 + 0.5 * over * over)
+            return traffic.continuous_batching_stats(
+                xp, rows[0, 0], rows[1, 0] * derate, c)
+
+        if self._custom:
+            slots_f, k_pf = self._amortize_consts()
+
+            def values_fn(xp, rows, ctx):
+                st = stats(xp, rows, ctx["dram_capacity"])
+                # slo_ok AND feasible: a masked-infeasible point's
+                # tokens_per_s is 0, which would otherwise survive the
+                # non-finite goodput masking as a finite -0.0 objective
+                ok = traffic.slo_ok(st, slo, xp=xp) & st["feasible"]
+                return ({"ttft_p99_s": st["ttft_p99_s"],
+                         "cost_device_s_per_token":
+                             st["cost_device_s_per_token"],
+                         "device_s_per_token":
+                             st["cost_device_s_per_token"],
+                         "base_tokens_per_s": st["tokens_per_s"],
+                         "token_compute_s": div(rows[1, 1], slots_f)
+                         + rows[0, 1] * k_pf,
+                         "token_comm_s": div(rows[1, 2], slots_f)
+                         + rows[0, 2] * k_pf}, ok)
+            return self._custom_frontier_fold(cfg, strategy, values_fn)
+
+        def fold(rows, hw_vec):
+            st = stats(XP, rows, hw_vec[cap_i])
+            ok = traffic.slo_ok(st, slo, xp=XP)
+            return XP.stack([
+                XP.where(ok, st["ttft_p99_s"], XP.inf),
+                XP.where(ok, st["cost_device_s_per_token"], XP.inf)])
         return fold
 
     def metrics_fold(self, cfg: ArchConfig, strategy: Strategy, cell_id):

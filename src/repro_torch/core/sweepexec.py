@@ -17,10 +17,13 @@ same reader and writer.
   * spec heads (`write_spec_head` / `load_spec_head` /
     `check_fingerprint`) — the resume identity of a sweep directory.
 
-The frontier-state checkpoints (``save_frontier_state`` /
-``load_frontier_state``) come with ``--frontier-only`` (ROADMAP queue 1
-item 11).  Nothing here resolves design points: this layer owns
-*durability*, the runner owns *evaluation*.
+  * frontier-state checkpoints (`save_frontier_state` /
+    `load_frontier_state`) — the carried device-resident Pareto state of
+    ``--frontier-only`` sweeps plus the chunks merged into it, in the
+    reference's ``frontier_state.npz`` layout.
+
+Nothing here resolves design points: this layer owns *durability*, the
+runner owns *evaluation*.
 """
 
 from __future__ import annotations
@@ -199,3 +202,59 @@ class ChunkJournal:
             if done is None or rec.get("chunk") in done:
                 out.append(rec)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Frontier-state checkpoints (carried device-resident Pareto state)
+# ---------------------------------------------------------------------------
+
+
+def save_frontier_state(path: str, state, done: Dict[int, str],
+                        capacity: int, fingerprint: str) -> None:
+    """Atomically persist a carried frontier state plus the set of merged
+    (committed) chunks — THE frontier-mode checkpoint.  Written after
+    every committed superbatch, so a SIGKILL loses at most the in-flight
+    packs and a resume continues from the merged state with zero
+    re-evaluation (the chunked-sweep semantics).  ``state`` is host
+    arrays in the reference's dtypes (`pathfinder.frontier_host`)."""
+    vals, payload, idx, overflow = state
+    order = sorted(done)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, vals=vals, payload=payload, idx=idx,
+                 overflow=overflow,
+                 done_idx=np.asarray(order, dtype=np.int64),
+                 done_hash=np.asarray([done[i] for i in order]),
+                 fingerprint=np.asarray(fingerprint),
+                 capacity=np.asarray(int(capacity)))
+    os.replace(tmp, path)
+
+
+def load_frontier_state(path: str, fingerprint: str, capacity: int,
+                        chunks: Sequence):
+    """(carried state, done chunks) of a frontier-state checkpoint.
+
+    Unlike `ChunkJournal.load_done`, a mismatched chunk is fatal rather
+    than re-evaluated: its points are already folded into the carried
+    state and cannot be dropped again."""
+    z = np.load(path)
+    if z["fingerprint"].item() != fingerprint:
+        raise ValueError("cannot resume: frontier state belongs to a "
+                         "different spec fingerprint")
+    if int(z["capacity"]) != int(capacity):
+        raise ValueError(
+            f"cannot resume: frontier capacity changed (checkpoint "
+            f"{int(z['capacity'])}, now {capacity}); rerun with the "
+            f"original --frontier-capacity")
+    by_index = {c.index: c for c in chunks}
+    done: Dict[int, str] = {}
+    for i, h in zip(z["done_idx"].tolist(), z["done_hash"].tolist()):
+        c = by_index.get(int(i))
+        if c is None or c.hash(fingerprint) != str(h):
+            raise ValueError(
+                f"cannot resume: frontier state does not match the "
+                f"current enumeration (chunk {i}); merged points "
+                f"cannot be un-merged — rerun in a fresh directory")
+        done[int(i)] = str(h)
+    state = (z["vals"], z["payload"], z["idx"], z["overflow"])
+    return state, done

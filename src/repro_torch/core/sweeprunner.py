@@ -8,43 +8,50 @@ tolerance.  This module scales the batched engine into a *sweep runner*:
   * the (arch x cell x mesh x tech x budget-scale x strategy) cross-product
     is enumerated deterministically and partitioned into fixed-size
     **chunks** of design points;
-  * chunks execute one after another (the ``serial`` backend), each one
-    batched `pathfinder.evaluate` call on the runner's device — the card
-    unless the caller asks for ``"cpu"``;
+  * chunks execute on one of the backends: ``pipeline`` (the default,
+    ``auto``; `core/sweeppipeline.py`) overlaps host packing, device work
+    and the JSONL commits over superbatches of chunks; ``serial`` scores
+    one chunk after another, each one batched `pathfinder.evaluate` call;
+    ``thread`` and ``process`` run chunks in a pool of ``workers``
+    (threads, or processes started with ``spawn``, since CUDA cannot be
+    forked) and commit them as they complete.  Every backend scores on the
+    runner's device — the card unless the caller asks for ``"cpu"``;
   * results **stream** to ``results.jsonl`` as chunks complete (plus a CSV
-    view via `to_csv`), so a crashed sweep loses at most one chunk;
+    view via `to_csv`), so a crashed sweep loses at most the in-flight
+    chunks;
   * an append-only ``checkpoint.jsonl`` records every finished chunk keyed
     on the sweep-spec fingerprint and a hash of the chunk's point keys;
     `run(resume=True)` skips checkpointed chunks with **zero
-    re-evaluation** and drops partial rows from an interrupted chunk.
+    re-evaluation** and drops partial rows from an interrupted chunk;
+  * ``run(frontier_only=True)`` streams every point through the
+    device-resident Pareto reduction instead: only the frontier comes back
+    (``frontier.jsonl``), and the carried state checkpoints to
+    ``frontier_state.npz`` per committed superbatch.
 
 A sweep directory is the reference's, byte for byte in its identities:
 the same ``spec.json`` fingerprint, the same chunk hashes and the same
 ``checkpoint.jsonl`` protocol, with ``results.jsonl`` records equal to the
 reference's serial runner with its bucketing off (labels and keys exactly,
-numbers at float32 rounding).  So a directory one package started resumes
-in the other.  The device is execution-only: it is no part of the spec or
-its fingerprint.
+numbers at float32 rounding), and the same ``frontier_state.npz`` layout.
+So a directory one package started resumes in the other, on any backend.
+The device and the backend are execution-only: no part of the spec or its
+fingerprint.
 
 Workload semantics (training step time vs prefill+decode serving) come from
 the scenario registry in `repro_torch.core.scenarios`.  The CLI front-end
 is ``python -m repro_torch.pathfind sweep [--scenario serving] [--out DIR]
-[--resume]``.
+[--resume] [--backend ...] [--frontier-only]``.
 
 Not ported yet, and where each goes (ROADMAP queue 1):
 
-  * the ``pipeline`` backend (the reference's default for ``auto``), the
-    ``thread`` and ``process`` pools and ``frontier_only`` runs, with the
-    frontier-state checkpoints: item 11.  ``auto`` means ``serial`` here;
-    the reference's pipelined records equal its serial ones by
-    construction, so the records do not change with it;
   * the ``device`` backend (one chunk sharded over several devices):
     item 9;
   * ``enable_compilation_cache`` and the compile counters of `RunStats`
     (``compile_hits``, ``compile_misses``, ``compile_seconds``,
     ``stall_seconds``), with the runner's ``compile_cache``,
-    ``superbatch``, ``compile_ahead`` and ``bucketing`` knobs: they drive
-    JAX's compiler, and nothing here is compiled.  Asking for any of these
+    ``compile_ahead`` and ``bucketing`` knobs other than their off
+    values: they drive JAX's compiler and the compile-ahead service
+    (item 11 (b)), and nothing here is compiled.  Asking for any of these
     raises ``NotImplementedError`` or is a ``TypeError``, never a silent
     no-op.
 """
@@ -58,6 +65,8 @@ import os
 import threading
 import time
 import warnings
+from concurrent.futures import (ProcessPoolExecutor, ThreadPoolExecutor,
+                                as_completed)
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,6 +80,7 @@ from repro_torch.core.parallelism import Strategy
 from repro_torch.core.placement import mesh_system
 from repro_torch.core.roofline import PPEConfig
 from repro_torch.core.sweepexec import iter_jsonl as _iter_jsonl
+from repro_torch.core.sweepexec import json_safe
 
 SPEC_VERSION = 1
 
@@ -386,6 +396,13 @@ def resolve_label(spec: SweepSpec, lb: PointLabel,
         system=mesh_system(lb.mesh))
 
 
+# padding quantum of the pipelined executor's batches: per-skeleton miss
+# counts vary from superbatch to superbatch (cache hits, mixed scenarios),
+# so each batch is padded to a multiple of SHARD_BLOCK rows and a sweep's
+# batches take a handful of shapes
+SHARD_BLOCK = 8
+
+
 def _eval_labels_impl(spec: SweepSpec, labels: Sequence[PointLabel],
                       cache=pathfinder.DEFAULT_CACHE,
                       shard_devices: bool = False,
@@ -432,6 +449,17 @@ def eval_labels(spec: SweepSpec, labels: Sequence[PointLabel],
                              shard_devices=shard_devices, device=device)
 
 
+def _process_eval(spec_dict: Dict, chunk_index: int,
+                  labels: Tuple[PointLabel, ...],
+                  device: str) -> Tuple[int, List[Dict]]:
+    """Worker-process entry of the ``process`` backend.  The chunk's labels
+    travel with the task (plain string dataclasses pickle cheaply) —
+    re-enumerating the whole cross-product per chunk would cost
+    O(n_chunks x n_points) — and so does the runner's device."""
+    return chunk_index, _eval_labels_impl(SweepSpec.from_dict(spec_dict),
+                                          labels, device=device)
+
+
 # ---------------------------------------------------------------------------
 # The runner
 # ---------------------------------------------------------------------------
@@ -443,7 +471,10 @@ class RunStats:
 
     ``cache_hits``/``cache_misses`` are this run's prediction-cache delta,
     so cache efficacy is visible per sweep instead of only as
-    process-lifetime totals.
+    process-lifetime totals.  In frontier mode (``frontier_only``)
+    ``records`` holds just the surviving Pareto frontier and
+    ``n_frontier_overflowed`` counts candidates the bounded
+    device-resident state had to drop (0 = the frontier is exact).
     """
 
     n_points_total: int
@@ -457,6 +488,8 @@ class RunStats:
     records: Optional[List[Dict]] = None
     cache_hits: int = 0
     cache_misses: int = 0
+    frontier_only: bool = False
+    n_frontier_overflowed: int = 0
 
     @property
     def complete(self) -> bool:
@@ -464,30 +497,25 @@ class RunStats:
                 == self.n_chunks_total)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
-        f"serial backend (the default, 'auto') writes the same records")
+BACKENDS = ("pipeline", "serial", "thread", "process", "device")
 
 
 def pick_backend(backend: str = "auto") -> str:
-    """``auto`` resolves to ``serial``, the one backend ported so far.
-
-    The reference's ``auto`` is its pipelined executor, whose records
-    equal its serial ones; the pipeline and the thread / process pools
-    come with ROADMAP queue 1 item 11 and raise until then, and the
-    ``device`` backend (a chunk sharded over several devices) with item
-    9.
-    """
-    if backend in ("auto", "serial"):
-        return "serial"
-    if backend in ("pipeline", "thread", "process"):
-        raise _not_ported(f"the {backend!r} backend", 11)
+    """``auto`` resolves to the pipelined executor, as in the reference: it
+    overlaps host packing, device work and JSONL commits.  The ``device``
+    backend (one chunk sharded over several devices) comes with ROADMAP
+    queue 1 item 9 and raises until then."""
+    if backend == "auto":
+        return "pipeline"
     if backend == "device":
-        raise _not_ported("the 'device' backend (a chunk sharded over "
-                          "several devices)", 9)
-    raise ValueError(f"unknown backend {backend!r}; expected "
-                     "pipeline|serial|thread|process|device|auto")
+        raise NotImplementedError(
+            "the 'device' backend (a chunk sharded over several devices) "
+            "is not ported yet (ROADMAP queue 1 item 9); the pipeline "
+            "backend (the default, 'auto') writes the same records")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected "
+                         "pipeline|serial|thread|process|device|auto")
+    return backend
 
 
 class SweepRunner:
@@ -499,20 +527,34 @@ class SweepRunner:
       results.jsonl     one record per design point, tagged with its chunk
       checkpoint.jsonl  one line per *finished* chunk: {"chunk","hash","n"}
 
-    The done-line is written after the chunk's rows, so a crash can only
-    leave rows from an unfinished chunk behind; resume compacts them away
-    before continuing.  ``device`` (the card unless the caller asks for
-    ``"cpu"``) is where every point is scored; it is execution-only.
+    (a frontier-only run writes ``frontier_state.npz`` and
+    ``frontier.jsonl`` in place of the last two).  The done-line is
+    written after the chunk's rows, so a crash can only leave rows from an
+    unfinished chunk behind; resume compacts them away before continuing.
+    ``device`` (the card unless the caller asks for ``"cpu"``) is where
+    every point is scored; it, the backend, ``workers`` (the pool size of
+    the thread / process backends) and ``superbatch`` (design points per
+    device dispatch on the pipeline) are execution-only.
     """
 
     def __init__(self, spec: SweepSpec, out_dir: Optional[str] = None,
-                 backend: str = "auto", cache=pathfinder.DEFAULT_CACHE,
-                 device=None):
+                 backend: str = "auto", workers: Optional[int] = None,
+                 cache=pathfinder.DEFAULT_CACHE,
+                 superbatch: Optional[int] = None,
+                 compile_ahead: Optional[int] = None,
+                 bucketing: Optional[bool] = None, device=None):
+        from repro_torch.core import sweeppipeline
+        sweeppipeline.check_knobs(compile_ahead=compile_ahead,
+                                  bucketing=bucketing)
         self.spec = spec
         self.out_dir = out_dir
         self.backend = pick_backend(backend)
+        self.workers = workers or min(4, os.cpu_count() or 1)
         # DEFAULT_CACHE sentinel: resolve the live singleton at call time
         self.cache = pathfinder.resolve_cache(cache)
+        self.superbatch = superbatch
+        self.compile_ahead = compile_ahead
+        self.bucketing = bucketing
         self.device = resolve_device(device)
         self._fp = spec.fingerprint()
 
@@ -535,7 +577,9 @@ class SweepRunner:
 
     def run(self, resume: bool = False, max_chunks: Optional[int] = None,
             collect: bool = True, verbose: bool = False,
-            frontier_only: bool = False) -> RunStats:
+            frontier_only: bool = False,
+            frontier_capacity: int = pathfinder.FRONTIER_CAPACITY
+            ) -> RunStats:
         """Execute (or continue) the sweep.
 
         resume      skip chunks recorded in checkpoint.jsonl (zero
@@ -544,12 +588,16 @@ class SweepRunner:
                     interrupted sweep with this).
         collect     return the accumulated records on RunStats.records.
         frontier_only
-                    the reference's device-resident streaming-Pareto mode;
-                    not ported yet (ROADMAP queue 1 item 11), so it raises.
+                    device-resident streaming-Pareto mode: per-point rows
+                    never materialize on host; RunStats.records holds only
+                    the frontier (written to DIR/frontier.jsonl, with the
+                    carried state checkpointed to DIR/frontier_state.npz
+                    and no results/checkpoint stream).
         """
         if frontier_only:
-            raise _not_ported("frontier_only (the device-resident "
-                              "streaming Pareto frontier)", 11)
+            return self._run_frontier(max_chunks=max_chunks,
+                                      capacity=frontier_capacity,
+                                      resume=resume)
         t0 = time.perf_counter()
         stats0 = self._cache_stats()
         labels = enumerate_labels(self.spec)
@@ -620,13 +668,139 @@ class SweepRunner:
             cache_hits=stats1["hits"] - stats0["hits"],
             cache_misses=stats1["misses"] - stats0["misses"])
 
+    def _executor(self):
+        from repro_torch.core import sweeppipeline
+        return sweeppipeline.PipelineExecutor(
+            self.spec, cache=self.cache,
+            superbatch=self.superbatch or sweeppipeline.SUPERBATCH,
+            compile_ahead=self.compile_ahead, bucketing=self.bucketing,
+            device=self.device)
+
+    def _load_frontier_state(self, spec_path: str, state_path: str,
+                             ckpt_path: str, chunks: List[Chunk],
+                             capacity: int):
+        """(carried state, done chunks) of an interrupted frontier sweep.
+
+        Unlike `_load_done`, a mismatched chunk is fatal rather than
+        re-evaluated: its points are already folded into the carried state
+        and cannot be dropped again."""
+        if os.path.exists(ckpt_path):
+            raise ValueError(
+                f"{self.out_dir} holds a full-sweep checkpoint, not a "
+                f"frontier-state checkpoint; resume it without "
+                f"--frontier-only, or point --out at a fresh directory")
+        sweepexec.check_fingerprint(spec_path, self._fp)
+        if not os.path.exists(state_path):
+            return None, {}             # spec written, nothing merged yet
+        return sweepexec.load_frontier_state(state_path, self._fp,
+                                             capacity, chunks)
+
+    def _run_frontier(self, max_chunks: Optional[int], capacity: int,
+                      resume: bool) -> RunStats:
+        """Frontier-only mode: stream every point through the
+        device-resident Pareto reduction; only the surviving records come
+        back to host (DIR/frontier.jsonl when an out_dir is set).  The
+        carried state checkpoints to DIR/frontier_state.npz per committed
+        superbatch, so an interrupted frontier sweep resumes with zero
+        re-evaluation — in either package."""
+        t0 = time.perf_counter()
+        stats0 = self._cache_stats()
+        labels = enumerate_labels(self.spec)
+        chunks = make_chunks(labels, self.spec.chunk_size)
+        state0 = None
+        done: Dict[int, str] = {}
+        state_path = None
+        if self.out_dir is not None:
+            # validate the destination BEFORE evaluating anything: a
+            # guard that fires after the sweep would discard hours of
+            # frontier compute
+            spec_path, _, ckpt_path = _paths(self.out_dir)
+            state_path = os.path.join(self.out_dir, "frontier_state.npz")
+            if resume:
+                state0, done = self._load_frontier_state(
+                    spec_path, state_path, ckpt_path, chunks, capacity)
+            else:
+                os.makedirs(self.out_dir, exist_ok=True)
+                if os.path.exists(ckpt_path):
+                    raise FileExistsError(
+                        f"{self.out_dir} already holds a checkpointed "
+                        f"sweep; frontier-only output would shadow it — "
+                        f"point --out at a fresh directory")
+                if os.path.exists(state_path):
+                    raise FileExistsError(
+                        f"{self.out_dir} already holds a frontier-state "
+                        f"checkpoint; pass resume=True (CLI: --resume) to "
+                        f"continue it, or point --out at a fresh "
+                        f"directory")
+            sweepexec.write_spec_head(spec_path, SPEC_VERSION, self._fp,
+                                      self.spec.to_dict())
+        elif resume:
+            raise ValueError("resume=True requires an out_dir")
+        pending = [c for c in chunks if c.index not in done]
+        if max_chunks is not None:
+            pending = pending[:max_chunks]
+        on_commit = None
+        if state_path is not None:
+            committed = dict(done)
+            by_index = {c.index: c for c in chunks}
+
+            def on_commit(indices, host_state):
+                for i in indices:
+                    committed[i] = by_index[i].hash(self._fp)
+                sweepexec.save_frontier_state(state_path, host_state,
+                                              committed, capacity, self._fp)
+        records, n_over, n_points = self._executor().run_frontier(
+            pending, capacity=capacity, state=state0, on_commit=on_commit,
+            all_chunks=chunks)
+        if self.out_dir is not None:
+            front_path = os.path.join(self.out_dir, "frontier.jsonl")
+            tmp = front_path + ".tmp"
+            with open(tmp, "w") as fh:
+                for rec in records:
+                    fh.write(json.dumps(json_safe(rec)) + "\n")
+            os.replace(tmp, front_path)
+        stats1 = self._cache_stats()
+        return RunStats(
+            n_points_total=len(labels), n_chunks_total=len(chunks),
+            n_chunks_skipped=len(done), n_chunks_evaluated=len(pending),
+            n_points_evaluated=n_points,
+            elapsed_s=time.perf_counter() - t0, backend="pipeline",
+            out_dir=self.out_dir, records=records,
+            cache_hits=stats1["hits"] - stats0["hits"],
+            cache_misses=stats1["misses"] - stats0["misses"],
+            frontier_only=True, n_frontier_overflowed=n_over)
+
     def _execute(self, pending: List[Chunk], commit):
-        """The serial backend: one batched evaluation per chunk, in
-        order, each committed before the next starts."""
-        for c in pending:
-            commit(c, _eval_labels_impl(self.spec, c.labels,
-                                        cache=self.cache,
-                                        device=self.device))
+        """Score ``pending`` on the runner's backend, committing each chunk
+        through ``commit``: in chunk order (pipeline, serial) or as the
+        chunks complete (thread, process)."""
+        spec = self.spec
+        if self.backend == "pipeline":
+            self._executor().run(pending, commit)
+        elif self.backend == "serial":
+            for c in pending:
+                commit(c, _eval_labels_impl(spec, c.labels,
+                                            cache=self.cache,
+                                            device=self.device))
+        elif self.backend == "thread":
+            with ThreadPoolExecutor(self.workers) as ex:
+                futs = {ex.submit(_eval_labels_impl, spec, c.labels,
+                                  self.cache, device=self.device): c
+                        for c in pending}
+                for f in as_completed(futs):
+                    commit(futs[f], f.result())
+        else:                                 # process
+            import multiprocessing as mp
+            ctx = mp.get_context("spawn")     # CUDA cannot be forked
+            spec_dict = spec.to_dict()
+            by_index = {c.index: c for c in pending}
+            with ProcessPoolExecutor(self.workers, mp_context=ctx) as ex:
+                futs = [ex.submit(_process_eval, spec_dict, c.index,
+                                  c.labels, str(self.device))
+                        for c in pending]
+                for f in as_completed(futs):
+                    idx, records = f.result()
+                    commit(by_index[idx], records)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ and a missing card is an error, never a silent fall-back to the host):
           With --out DIR (or any other flag of the chunked engine:
           --resume, --scenario, --scale, --slo, --scenario-param,
           --objectives, --profile, --chunk-size, --max-chunks,
-          --backend, --arch all) the sweep runs on the chunked,
-          resumable runner (repro_torch.core.sweeprunner): results
+          --backend, --workers, --superbatch, --frontier-only,
+          --frontier-cap, --arch all) the sweep runs on the chunked,
+          resumable runner (repro_torch.core.sweeprunner; by default its
+          pipelined executor, repro_torch.core.sweeppipeline): results
           stream to DIR/results.jsonl, finished chunks are checkpointed,
           and an interrupted sweep continues with ZERO re-evaluation:
 
@@ -32,11 +34,15 @@ and a missing card is an error, never a silent fall-back to the host):
           chunk hashes and checkpoint protocol, so either package resumes
           a sweep the other started.  --scenario picks the workload
           (repro_torch.core.scenarios): train, serving, serving-long,
-          serving-traffic.  The reference's flags whose machinery is not
-          ported yet exit 2 naming their ROADMAP queue 1 item: --workers,
-          --lease-ttl, --frontier-only, --frontier-cap, --superbatch,
-          --compile-ahead, --no-bucketing, --no-compile-cache and the
-          backends other than serial / auto (item 11; device: item 9).
+          serving-traffic.  --backend pipeline (auto), serial, thread or
+          process (--workers N is the pool size of the last two);
+          --frontier-only keeps only the Pareto frontier, carried on the
+          card (DIR/frontier.jsonl, resumable from
+          DIR/frontier_state.npz).  The reference's flags whose
+          machinery is not ported yet exit 2 naming their ROADMAP queue 1
+          item: --workers on the pipeline backend (the sweep fabric),
+          --lease-ttl, --compile-ahead, --no-bucketing and
+          --no-compile-cache (item 11), --backend device (item 9).
 
   size    inverse fleet sizing over a swept serving-traffic design space:
           the minimum device count serving --qps under percentile SLO
@@ -211,14 +217,7 @@ def _add_scenario_flags(p, default_scenario: str = "train") -> None:
 # flags of the reference's `sweep` whose machinery is not ported yet: each
 # exits 2 naming its ROADMAP queue 1 item (dest, flag, what, item)
 LATER_SWEEP_FLAGS = (
-    ("workers", "--workers", "parallel chunk workers (the distributed "
-     "sweep fabric and the thread / process pools)", 11),
     ("lease_ttl", "--lease-ttl", "the sweep fabric's chunk leases", 11),
-    ("frontier_only", "--frontier-only", "the device-resident streaming "
-     "Pareto frontier", 11),
-    ("frontier_cap", "--frontier-cap", "the device-resident streaming "
-     "Pareto frontier", 11),
-    ("superbatch", "--superbatch", "the pipelined executor", 11),
     ("compile_ahead", "--compile-ahead", "the pipelined executor's "
      "compile-ahead service", 11),
     ("no_bucketing", "--no-bucketing", "cross-design bucketing (nothing "
@@ -254,24 +253,38 @@ def _parser() -> argparse.ArgumentParser:
                          "re-evaluation of finished chunks)")
     sw.add_argument("--chunk-size", type=int, default=32,
                     help="design points per chunk (checkpoint granularity)")
+    sw.add_argument("--workers", type=int, default=None,
+                    help="parallel chunk workers: on thread/process "
+                         "backends the pool size (on the pipeline/auto "
+                         "backend the reference's distributed sweep "
+                         "fabric, not ported yet: exits 2)")
+    sw.add_argument("--lease-ttl", type=float, default=None,
+                    help="not ported yet (exits 2)")
     sw.add_argument("--backend", default="auto",
                     choices=["auto", "pipeline", "serial", "thread",
                              "process", "device"],
-                    help="chunk fan-out: auto = serial, the one backend "
-                         "ported so far (the others exit 2)")
+                    help="chunk fan-out: auto = the pipelined executor "
+                         "(async double-buffered producer/device/writer "
+                         "pipeline on the card's own stream; device "
+                         "exits 2)")
     sw.add_argument("--max-chunks", type=int, default=None,
                     help="stop after N chunks (testing/benchmarks; "
                          "combine with --resume to continue)")
-    sw.add_argument("--workers", type=int, default=None,
-                    help="not ported yet (exits 2)")
-    sw.add_argument("--lease-ttl", type=float, default=None,
-                    help="not ported yet (exits 2)")
     sw.add_argument("--superbatch", type=int, default=None,
-                    help="not ported yet (exits 2)")
+                    help="design points per device dispatch on the "
+                         "pipeline backend (default 256; commit "
+                         "granularity stays --chunk-size)")
     sw.add_argument("--frontier-only", action="store_true",
-                    help="not ported yet (exits 2)")
+                    help="device-resident streaming-Pareto mode: only "
+                         "the frontier over the scenario's objectives is "
+                         "materialized/printed (DIR/frontier.jsonl with "
+                         "--out); per-point rows never reach the host; "
+                         "the carried state checkpoints to "
+                         "DIR/frontier_state.npz per committed superbatch "
+                         "(--resume continues with zero re-evaluation)")
     sw.add_argument("--frontier-cap", type=int, default=None,
-                    help="not ported yet (exits 2)")
+                    help="carried device frontier capacity (default 512; "
+                         "overflow is reported, never silent)")
     sw.add_argument("--no-compile-cache", action="store_true",
                     help="not ported yet (exits 2)")
     sw.add_argument("--compile-ahead", type=int, default=None, metavar="N",
@@ -322,7 +335,8 @@ def _parser() -> argparse.ArgumentParser:
     sz.add_argument("--backend", default="auto",
                     choices=["auto", "pipeline", "serial", "thread",
                              "process", "device"],
-                    help="sweep backend (axes mode; auto = serial)")
+                    help="sweep backend (axes mode; auto = the "
+                         "pipelined executor)")
     _add_device_flag(sz, "the fresh sweep (axes mode)")
 
     ca = sub.add_parser("calibrate",
@@ -583,6 +597,9 @@ def _cmd_sweep(args) -> int:
                       or args.chunk_size != 32
                       or args.profile is not None
                       or args.scenario_param or args.objectives
+                      or args.workers is not None
+                      or args.frontier_only or args.superbatch is not None
+                      or args.frontier_cap is not None
                       or (args.arch and "all" in args.arch))
     if use_runner:
         return _cmd_sweep_runner(args)
@@ -670,7 +687,18 @@ def _cmd_sweep_runner(args) -> int:
     """Chunked / resumable path (repro_torch.core.sweeprunner)."""
     from repro_torch.core import sweeprunner
 
-    kwargs = dict(backend=args.backend, device=args.device)
+    if args.superbatch is not None and args.superbatch <= 0:
+        print(f"error: --superbatch must be a positive number of design "
+              f"points (got {args.superbatch}); drop the flag for the "
+              f"default (256)", file=sys.stderr)
+        return 2
+    if args.frontier_only and args.pareto:
+        print("error: --frontier-only already reduces to the "
+              "scenario's Pareto objectives on device; drop --pareto",
+              file=sys.stderr)
+        return 2
+    kwargs = dict(backend=args.backend, workers=args.workers,
+                  superbatch=args.superbatch, device=args.device)
     if args.resume:
         if not args.out:
             print("error: --resume requires --out DIR", file=sys.stderr)
@@ -695,8 +723,20 @@ def _cmd_sweep_runner(args) -> int:
             print(f"# profile: {args.profile} "
                   f"(tech={spec.profile.get('tech')})", file=sys.stderr)
         runner = sweeprunner.SweepRunner(spec, out_dir=args.out, **kwargs)
+    # --workers on the pipeline backend is the reference's distributed
+    # sweep fabric (N sweep-worker processes over --out)
+    if args.workers is not None and runner.backend == "pipeline":
+        print("error: --workers: parallel chunk workers on the "
+              "pipeline/auto backend (the distributed sweep fabric) is "
+              "not ported yet (ROADMAP queue 1 item 11); --backend thread "
+              "or process runs a pool of N workers", file=sys.stderr)
+        return 2
 
-    stats = runner.run(resume=args.resume, max_chunks=args.max_chunks)
+    run_kwargs = dict(resume=args.resume, max_chunks=args.max_chunks,
+                      frontier_only=args.frontier_only)
+    if args.frontier_cap is not None:
+        run_kwargs["frontier_capacity"] = args.frontier_cap
+    stats = runner.run(**run_kwargs)
     # any variant resolves the same fields/objectives for CSV + frontier
     scn = runner.spec.scenario_spec.variants()[0].resolve()
     records = stats.records or []
@@ -710,7 +750,8 @@ def _cmd_sweep_runner(args) -> int:
         with open(args.csv, "w") as fh:
             fh.write(csv_text + "\n")
         print(f"# wrote {len(shown)} points to {args.csv}", file=sys.stderr)
-    print(f"# sweep[{scn.name}] backend={stats.backend}: "
+    mode = " frontier-only" if stats.frontier_only else ""
+    print(f"# sweep[{scn.name}]{mode} backend={stats.backend}: "
           f"{stats.n_points_total} points in {stats.n_chunks_total} chunks; "
           f"skipped {stats.n_chunks_skipped} checkpointed, evaluated "
           f"{stats.n_chunks_evaluated} "
@@ -718,10 +759,25 @@ def _cmd_sweep_runner(args) -> int:
           file=sys.stderr)
     print(f"# cache: prediction {stats.cache_hits} hits / "
           f"{stats.cache_misses} misses", file=sys.stderr)
+    if stats.frontier_only:
+        print(f"# frontier: {len(records)} non-dominated points over "
+              f"{'/'.join(scn.objectives)}", file=sys.stderr)
+        if stats.n_frontier_overflowed:
+            print(f"# warning: device frontier capacity overflowed "
+                  f"({stats.n_frontier_overflowed} candidates dropped); "
+                  f"raise --frontier-cap", file=sys.stderr)
     if not stats.complete:
-        if stats.out_dir:
-            device = "" if runner.device.type == "cuda" \
-                else f" --device {runner.device.type}"
+        device = "" if runner.device.type == "cuda" \
+            else f" --device {runner.device.type}"
+        if stats.frontier_only and stats.out_dir:
+            print(f"# incomplete: resume with `python -m "
+                  f"repro_torch.pathfind sweep --out {stats.out_dir} "
+                  f"--resume --frontier-only{device}` (carried state in "
+                  f"frontier_state.npz)", file=sys.stderr)
+        elif stats.frontier_only:
+            print("# incomplete (no --out directory: the carried frontier "
+                  "state was not checkpointed)", file=sys.stderr)
+        elif stats.out_dir:
             print(f"# incomplete: resume with `python -m "
                   f"repro_torch.pathfind sweep --out {stats.out_dir} "
                   f"--resume{device}`", file=sys.stderr)

@@ -903,6 +903,45 @@ def test_card_runner_records_match_the_golden_records(tmp_path):
         assert CS._held_records(got, want, scenario) > 0
 
 
+@pytest.mark.cuda
+def test_card_pipeline_records_match_the_golden_records(tmp_path):
+    """The golden file's grid on the card through each executor: the
+    pipeline (superbatches of one chunk) and the serial backend hold their
+    records to the reference's in tests/test_torch_golden_runner.jsonl
+    (1e-4) and write the same ``spec.json`` and ``checkpoint.jsonl``
+    bytes; ``--frontier-only`` writes exactly the keys of the golden
+    records' `pareto_records`, nothing overflowed."""
+    import json
+    from repro_torch.core import sweeprunner
+    _card()
+    golden = {}
+    for line in GOLDEN_RUNNER.read_text().splitlines():
+        rec = json.loads(line)
+        golden.setdefault(rec.pop("scenario"), []).append(rec)
+    runner = dict(CS.RUNNER, arches=CS.RUNNER["golden_arches"])
+    for scenario, want in golden.items():
+        argv = CS.runner_argv(scenario, runner) + ["--device", "cuda"]
+        dirs = {}
+        for backend in ("pipeline", "serial"):
+            d = dirs[backend] = tmp_path / f"{scenario}-{backend}"
+            CS._cli(argv + ["--out", d, "--backend", backend,
+                            "--superbatch", 8])
+            got = [{k: v for k, v in r.items() if k != "chunk"}
+                   for r in CS._jsonl(d / "results.jsonl")]
+            assert CS._held_records(got, want, (scenario, backend)) > 0
+        for name in ("spec.json", "checkpoint.jsonl"):
+            assert (dirs["pipeline"] / name).read_bytes() == \
+                (dirs["serial"] / name).read_bytes(), (scenario, name)
+        d = tmp_path / f"{scenario}-frontier"
+        _, _, err, _ = CS._cli(argv + ["--out", d, "--frontier-only"])
+        assert "overflowed" not in err
+        spec, _ = sweeprunner.load_sweep(str(dirs["pipeline"]))
+        objectives = spec.scenario_spec.variants()[0].resolve().objectives
+        assert sorted(r["key"] for r in CS._jsonl(d / "frontier.jsonl")) \
+            == sorted(r["key"] for r in sweeprunner.pareto_records(
+                want, objectives))
+
+
 GOLDEN_SOE = Path(__file__).with_name("test_torch_golden_soe.json")
 
 

@@ -149,8 +149,8 @@ def test_what_is_not_ported_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="item 9"):
         ev.evaluate_matrix(archs[0], pathfinder.pack_hw_many(archs),
                            devices=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sweeprunner.pick_backend("pipeline")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sweeprunner.pick_backend("device")
     with pytest.raises(ValueError, match="label mode needs both"):
         pathfinder.evaluate(spec=object())
     with pytest.raises(ValueError, match="label mode's"):

@@ -16,16 +16,19 @@ reference's process-wide caches are not touched.
 import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp  # (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 import numpy as np
 import pytest
 import torch
 
 from repro.configs.base import SHAPE_CELLS as REF_CELLS
+from repro.configs.base import get_config as ref_get_config
 from repro.core import pathfinder as ref_pf
 from repro.core import scenarios as ref_scenarios
 from repro.core import simulate as ref_simulate
 from repro.core import sweeprunner as ref_sr
+from repro.core.parallelism import Strategy as RefStrategy
 from repro_torch.configs.base import get_config
 from repro_torch.core import pathfinder, scenarios, simulate, sweeprunner
 from repro_torch.core.parallelism import Strategy
@@ -152,7 +155,7 @@ def test_serving_breakdown_matches_the_reference():
 def test_scenario_specs_and_registry_match_the_reference():
     """ScenarioSpec construction, serialization, variant expansion and
     resolution, and the registry's names, fields and objectives; the
-    traced folds raise naming their ROADMAP items."""
+    frontier folds against the reference's traced ones."""
     assert scenarios.scenario_names() == ref_scenarios.scenario_names()
     specs = [dict(name=n) for n in scenarios.scenario_names()] + [
         dict(name="train", cells=("train_4k",)),
@@ -187,18 +190,39 @@ def test_scenario_specs_and_registry_match_the_reference():
     with pytest.raises(KeyError, match="unknown scenario"):
         scenarios.get_scenario("no-such-scenario")
 
-    # the device-resident frontier fold (item 11) is not ported;
-    # cooptimize's differentiable fold (item 8) is: a fold of the
-    # scenario's refine objectives (held to the reference's in
+    # the device-resident frontier fold (item 11 (a)) over seeded rows is
+    # the reference's traced one within float32 rounding, infinities where
+    # it has them; cooptimize's differentiable fold (item 8) is a fold of
+    # the scenario's refine objectives (held to the reference's in
     # tests/test_torch_cooptimize.py); the registry is the port's own
     kw = dict(GRID, scenario="serving", objectives=OBJECTIVES)
     spec = sweeprunner.SweepSpec(**kw)
-    lb = sweeprunner.enumerate_labels(spec)[0]
+    lb = next(lb for lb in sweeprunner.enumerate_labels(spec)
+              if lb.mesh == (8, 8))        # a design whose KV cache fits
     dp = sweeprunner.resolve_label(spec, lb, device="cpu")
+    hw = pathfinder.pack_hw(dp.hw)
+    ref_cfg = ref_get_config(lb.arch)
+    ref_st = RefStrategy.parse(lb.strategy)
+    rng = np.random.default_rng(3)
     for name in scenarios.scenario_names():
-        scn = scenarios.get_scenario(name).with_objectives(OBJECTIVES)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            scn.frontier_fold(dp.cfg, dp.strategy)
+        for objectives in (None, OBJECTIVES):
+            scn = scenarios.get_scenario(name).with_objectives(objectives)
+            ref = ref_scenarios.get_scenario(name).with_objectives(
+                objectives)
+            # milliseconds to seconds: some designs within the traffic's
+            # utilization wall
+            rows = _rows(rng, 16, scn.points_per_design()) \
+                * np.float32(1e-3)
+            hws = np.repeat(hw[None], 16, axis=0)
+            hws[::3, pathfinder.HW_FIELDS.index("dram_capacity")] *= 1e-3
+            got = torch.func.vmap(scn.frontier_fold(dp.cfg, dp.strategy))(
+                torch.from_numpy(rows), torch.from_numpy(hws)).numpy()
+            want = np.asarray(jax.vmap(ref.frontier_fold(
+                ref_cfg, ref_st))(jnp.asarray(rows), jnp.asarray(hws)))
+            assert got.dtype == np.float32 and got.shape == want.shape
+            fin = np.isfinite(want)
+            assert (np.isfinite(got) == fin).all() and fin.any(), name
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6)
         assert callable(scn.refine_objectives(dp))
     mine = scenarios.TrainScenario(cell="train_4k", name="train-port-only")
     scenarios.register_scenario(mine)

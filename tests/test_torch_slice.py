@@ -221,6 +221,14 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
         assert f"  {scenario}: {n} records held to the host's, {n} to " \
             "test_torch_golden_runner.jsonl" in out
     assert "pathfind size --from DIR" in out
+    for scenario in ("train", "serving", "serving-traffic"):
+        assert f"  {scenario} --backend serial on cpu: " in out
+        assert f"  {scenario} --frontier-only on cpu: " in out
+    assert "then --resume on the pipeline: skipped 1, evaluated 1" in out
+    assert "resumed from frontier_state.npz: skipped 1" in out
+    for backend in ("thread", "process"):
+        assert f"  train (golden archs) --backend {backend} --workers " \
+            in out
     assert "pathfind soe on cpu: RC-4-1-d16-p1 492.126 ms/iter, 6 " \
         "queries; 3 descents, 9 eq.-6 steps in" in out
     assert "the card's pathfind soe prints the reference's lines\n" in out
@@ -295,6 +303,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_card.py"]
     assert len(files) > 20
+    assert REPO / "src" / "repro_torch" / "core" / "sweeppipeline.py" in files
     walked = {f.parent.name for f in files}
     assert {"core", "kernels", "calibrate", "models", "launch", "optim",
             "data", "runtime", "checkpoint"} <= walked

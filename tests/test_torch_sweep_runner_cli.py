@@ -13,7 +13,7 @@ The reference CLI takes the process-wide prediction cache, so it runs with
 a private one swapped in and the old one swapped back (neither filled nor
 cleared); it is asked for its serial backend, without bucketing (ROADMAP
 queue 3) and without its persistent compile cache (a process-wide JAX
-setting).
+setting), and the port for its serial backend too.
 """
 
 import re
@@ -31,7 +31,9 @@ GRID = ["sweep", "--scenario", "serving-traffic", "--arch", "qwen1.5-0.5b",
         "--hbm", "HBM2E,HBM3", "--objectives", "energy,cost,goodput",
         "--scenario-param", "qps=0.25,1", "--slo", "18", "--chunk-size", "4"]
 REF_ONLY = ["--backend", "serial", "--no-bucketing", "--no-compile-cache"]
-PORT_ONLY = ["--device", "cpu"]
+# the port's serial backend, as the reference's: the pipeline (the default
+# of both) counts prediction-cache hits per superbatch, not per chunk
+PORT_ONLY = ["--device", "cpu", "--backend", "serial"]
 
 
 @pytest.fixture

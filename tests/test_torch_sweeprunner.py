@@ -100,7 +100,7 @@ def test_runner_records_match_the_reference(tmp_path, name):
     ref_stats = _ref_run(ref_sr.SweepSpec(**FIXTURES[name]), tmp_path / "r")
     stats = _port_run(sweeprunner.SweepSpec(**FIXTURES[name]),
                       tmp_path / "p")
-    assert stats.complete and stats.backend == "serial"
+    assert stats.complete and stats.backend == "pipeline"
     for f in ("n_points_total", "n_chunks_total", "n_chunks_evaluated",
               "n_points_evaluated", "cache_hits", "cache_misses"):
         assert getattr(stats, f) == getattr(ref_stats, f), f
@@ -222,13 +222,18 @@ def test_specs_serialize_as_the_references_and_refusals(tmp_path):
         _port_run(spec, tmp_path)
     with pytest.raises(ValueError, match="out_dir"):
         _port_run(spec, None, resume=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _port_run(spec, None, frontier_only=True)
-    assert sweeprunner.pick_backend("auto") == "serial"
-    for backend, item in (("pipeline", 11), ("thread", 11), ("process", 11),
-                          ("device", 9)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            sweeprunner.SweepRunner(spec, backend=backend, device="cpu")
+    front = _port_run(spec, None, frontier_only=True)
+    full = _port_run(spec, None)
+    assert front.frontier_only and front.n_frontier_overflowed == 0
+    assert [r["key"] for r in front.records] == [
+        r["key"] for r in sweeprunner.pareto_records(
+            full.records, ("time_s", "devices"))]
+    assert sweeprunner.pick_backend("auto") == "pipeline"
+    for backend in ("pipeline", "serial", "thread", "process"):
+        assert sweeprunner.SweepRunner(spec, backend=backend,
+                                       device="cpu").backend == backend
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sweeprunner.SweepRunner(spec, backend="device", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         sweeprunner.pick_backend("gpu")
     if not torch.cuda.is_available():
