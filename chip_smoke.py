@@ -11,9 +11,9 @@ CrossFlow prediction, the search layer and the chunked sweep runner
 soe|cooptimize``), serving full-width qwen1.5-0.5b
 (``python -m repro_torch.launch.serve``), the recurrent families at
 full width (``Model.prefill`` and ``serve`` of recurrentgemma-2b and
-xlstm-125m), training (``launch.train.train``), and the MoE,
+xlstm-125m), training (``launch.train.train``), the MoE,
 encoder-decoder and LSTM families (qwen2-moe-a2.7b and whisper-large-v3
-at full width):
+at full width), and parallelism (the mesh path over a ``DeviceMesh``):
 
   1. setup     prints the card's name and power limit and builds every
                CUDA kernel of the paths from ``src/repro_torch/kernels/csrc``
@@ -139,11 +139,23 @@ at full width):
                of ``launch.train.train`` at 1500 frames and 448 tokens,
                one more timed and one profiled.  Phase 2 holds the
                attention kernel to its plain version at every shape
-               these paths give it (ATTN_PATH).
+               these paths give it (ATTN_PATH);
+  9. parallel  the process group at world size 1 (NCCL), then (a) three
+               steps of ``make_train_step`` on full-width qwen1.5-0.5b at
+               (4, 2048) through the mesh path (DTensor parameters, AdamW
+               moments and batches on a 1x1 ``DeviceMesh``; the kernels
+               reached on each rank's shards), from phase 7 (b)'s seed,
+               batches and schedule, its losses held to phase 7 (b)'s
+               first three at rtol 1e-5 and its step ms printed beside
+               phase 7 (b)'s; (b) ``bucketed_all_reduce`` of a mixed bf16
+               / f32 tree; (c) the ``collective`` microbenchmark at 1
+               device; (d) where the host has more than one card, three
+               steps of ``torchrun`` training on a 2-rank mesh, else a
+               line saying it has one.
 
-Every kernel's launch count is zeroed just before phases 3-5, 6, 7 (b)-(e)
-and 8, and read just after each; each must have risen by exactly the count
-the paths imply.  Any failure exits non-zero.  The last
+Every kernel's launch count is zeroed just before phases 3-5, 6, 7 (b)-(e),
+8 and 9 (a), and read just after each; each must have risen by exactly
+the count the paths imply.  Any failure exits non-zero.  The last
 two lines of standard output are a JSON line of kernel results and the
 device line ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line
 before them is the card's name and power limit as nvidia-smi gives them.
@@ -158,6 +170,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -401,7 +414,9 @@ GRAD_CASES = {
 # element by up to lr per step) and within RESUME_TOLS["mean"] of them on
 # average (mean |difference| over mean |parameter|); then ``timed`` steps
 # timed and one profiled.  (c) recurrentgemma-2b and xlstm-125m at full
-# width: ``other_steps`` steps of ``train`` each, one profiled.  (d) the
+# width: ``other_steps`` steps of ``train`` each, one more profiled for
+# the archs in ``profiled`` (xlstm-125m's profile, ~94,000 launches whose
+# events took the profiler 60-80 s, cut for phase 9's time).  (d) the
 # reduced models held to tests/test_torch_golden_train.npz.
 # (e) remat through the kernels' Functions: one step of each reduced arch
 # below (attention, the scan, the mLSTM: every block kind with a kernel)
@@ -417,7 +432,8 @@ REMAT_TOLS = dict(loss=1e-6, grad=1e-5)
 TRAIN = dict(arch="qwen1.5-0.5b", batch=4, seq=2048, steps=20, lr=1e-3,
              warmup=5, resume_at=17, timed=3,
              others=(("recurrentgemma-2b", 2, 1024), ("xlstm-125m", 2, 512)),
-             other_steps=3, use_reduced=False, grads=GRAD_CASES, remat=REMAT)
+             other_steps=3, profiled=("recurrentgemma-2b",), use_reduced=False,
+             grads=GRAD_CASES, remat=REMAT)
 RESUME_TOLS = dict(loss=1e-5, mean=1e-5)
 GOLDEN_TRAIN = ROOT / "tests" / "test_torch_golden_train.npz"
 # what the golden file holds: the reduced archs in float32, numpy weights
@@ -2217,10 +2233,12 @@ def _profile_train_step(step_fn, out, cfg, batch: int, seq: int, device,
               f"{busy / 1e3:.3f} ms busy")
 
 
-def phase_train(device, train: dict, workdir: Path) -> collections.Counter:
+def phase_train(device, train: dict, workdir: Path,
+                record: dict = None) -> collections.Counter:
     """Phase 7 (b) and (c): ``launch.train.train`` at full width, the
     checkpoint round trip, timed and profiled steps.  Returns the kernel
-    launches these runs must have made."""
+    launches these runs must have made; ``record`` gets (b)'s losses and
+    median step ms (phase 9 holds the mesh path to them)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config, reduced
@@ -2320,6 +2338,8 @@ def phase_train(device, train: dict, workdir: Path) -> collections.Counter:
         sync()
         times.append(time.perf_counter() - t1)
     step_s = sorted(times)[len(times) // 2]
+    if record is not None:
+        record.update(losses=list(hist), step_ms=step_s * 1e3)
     plan = out["plan"]
     print(f"  step time (median of {len(times)}, host clock after a "
           f"synchronise): {step_s * 1e3:.2f} ms, {b * s / step_s:.1f} "
@@ -2362,7 +2382,7 @@ def phase_train(device, train: dict, workdir: Path) -> collections.Counter:
                  else "not measured"))
         assert len(oh) == n and all(np.isfinite(oh)), oh
         expected += _train_launches(ocfg, n)
-        if cuda:
+        if cuda and arch in train["profiled"]:
             ostep = train_mod.make_train_step(
                 build_model(ocfg, device), ocfg,
                 optim.AdamWConfig(lr=train["lr"],
@@ -2404,46 +2424,63 @@ def golden_weights(defs, seed: int = 0):
 
 
 def train_golden_port(arch: str, device, golden: dict = TRAIN_GOLDEN,
-                      batches=None) -> dict:
+                      batches=None, mesh=None) -> dict:
     """The port's numbers for what tests/test_torch_golden_train.npz holds:
     the reduced arch in float32, the first step's per-leaf gradient norms
     (JAX's leaf order) and the loss of each of ``steps`` AdamW steps.
     ``batches`` (tokens, labels: int32 (steps, batch, seq) numpy, the
     file's) stand in for the data pipeline's, which they equal where
-    numpy draws the reference's stream."""
+    numpy draws the reference's stream.  With a ``mesh`` (a DeviceMesh of
+    the process group) the steps take the mesh path: the planner's
+    placements, DTensor parameters, moments and batches."""
     import dataclasses as dc
     import numpy as np
     import torch
     from repro_torch import optim
-    from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch.train import make_train_step
+    from repro_torch.configs.base import ShapeCell, get_config, reduced
+    from repro_torch.core import planner
+    from repro_torch.launch.train import item, make_train_step
     from repro_torch.models import build_model
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.parallel import replicating, sharding
+    from repro_torch.tree import is_dtensor, tree_leaves, tree_map
     cfg = dc.replace(reduced(get_config(arch)), dtype="float32")
     model = build_model(cfg, device)
     params = params_from_numpy(golden_weights(model.defs), device)
     b, s = golden["batch"], golden["seq"]
+    rules = None
+    if mesh is not None:
+        cell = ShapeCell("train", s, b, "train")
+        plan = planner.plan(cfg, cell, tuple(mesh.shape),
+                            mesh.mesh_dim_names, device=device)
+        rules = sharding.resolve_rules(plan, mesh)
+        bsh = sharding.batch_shardings(cfg, cell, plan, mesh)
+        params = sharding.distribute(params, mesh, sharding.param_shardings(
+            model, plan, mesh))
 
     def batch(i):
         if batches is None:
-            return _batch(cfg, b, s, i, device)
-        return {key: torch.from_numpy(np.ascontiguousarray(val[i])).to(
-            device) for key, val in zip(("tokens", "labels"), batches)}
+            out = _batch(cfg, b, s, i, device)
+        else:
+            out = {key: torch.from_numpy(np.ascontiguousarray(val[i])).to(
+                device) for key, val in zip(("tokens", "labels"), batches)}
+        return out if mesh is None else sharding.distribute(out, mesh, bsh)
 
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, _ = model.loss_fn(live, batch(0))
-    grads = torch.autograd.grad(loss, tree_leaves(live))
-    norms = np.array([torch.linalg.vector_norm(g).item() for g in grads],
-                     np.float32)
+    with replicating(mesh is not None):
+        loss, _ = model.loss_fn(live, batch(0), rules=rules, mesh=mesh)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    norms = np.array([torch.linalg.vector_norm(
+        g.full_tensor() if is_dtensor(g) else g).item() for g in grads],
+        np.float32)
     del live, grads
     step = make_train_step(model, cfg, optim.AdamWConfig(
         lr=golden["lr"], warmup_steps=golden["warmup"],
-        total_steps=golden["steps"]), False, "none")
+        total_steps=golden["steps"]), False, "none", rules, mesh)
     state, losses = optim.init(params), []
     for i in range(golden["steps"]):
         params, state, _, m = step(params, state, None, batch(i))
-        losses.append(float(m["loss"]))
+        losses.append(item(m["loss"]))
     return {"losses": np.array(losses, np.float32), "grad_norms": norms}
 
 
@@ -3183,6 +3220,148 @@ def _profile_decode(model, params, serve_kw: dict, device,
     return n
 
 
+PARALLEL = dict(steps=3, collective_bytes=(1 << 20, 1 << 26), reps=5)
+
+
+def phase_parallel(device, train: dict, phase7: dict,
+                   par: dict = PARALLEL) -> collections.Counter:
+    """Phase 9: the process group at world size 1 (NCCL on the card), the
+    mesh path's train steps against phase 7 (b)'s, the bucketed
+    all-reduce, the ``collective`` microbenchmark, and a 2-rank mesh where
+    the host has two cards.  Returns the kernel launches of (a)'s steps
+    (counted from zero around them)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.calibrate import microbench
+    from repro_torch.configs.base import ShapeCell, get_config, reduced
+    from repro_torch.core import planner
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.tree import is_dtensor, tree_leaves
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "host rehearsal"
+    t0 = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    rank, world = mesh_lib.init_distributed(device)
+    backend = dist.get_backend()
+    print(f"== phase 9: parallelism; process group {backend}, rank {rank} "
+          f"of {world}  [{card}]")
+    assert world == 1 and backend == ("nccl" if cuda else "gloo"), \
+        (world, backend)
+    try:
+        # (a) phase 7 (b)'s first steps through the mesh path
+        cfg = get_config(train["arch"])
+        cfg = reduced(cfg) if train["use_reduced"] else cfg
+        b, s, n = train["batch"], train["seq"], par["steps"]
+        mesh = mesh_lib.make_mesh((1, 1), device=device)
+        cell = ShapeCell("train", s, b, "train")
+        plan = planner.plan(cfg, cell, (1, 1), mesh.mesh_dim_names,
+                            device=device)
+        rules = sharding.resolve_rules(plan, mesh)
+        bsh = sharding.batch_shardings(cfg, cell, plan, mesh)
+        model = build_model(cfg, device)
+        params = model.init(0, shardings=sharding.param_shardings(
+            model, plan, mesh), mesh=mesh)
+        assert all(is_dtensor(p) for p in tree_leaves(params))
+        opt = optim.init(params)
+        step = train_mod.make_train_step(
+            model, cfg, optim.AdamWConfig(lr=train["lr"],
+                                          warmup_steps=train["warmup"],
+                                          total_steps=train["steps"]),
+            False, "none", rules, mesh)
+        print(f"-- (a) {cfg.name} at ({b}, {s}), {n} steps on a 1x1 "
+              f"DeviceMesh {mesh.mesh_dim_names}, plan "
+              f"{plan.strategy.name}: DTensor parameters and moments")
+        mods = _reset_launches()
+        losses, times = [], []
+        for i in range(n):
+            batch = sharding.distribute(_batch(cfg, b, s, i, device), mesh,
+                                        bsh)
+            sync()
+            t1 = time.perf_counter()
+            params, opt, _, m = step(params, opt, None, batch)
+            losses.append(train_mod.item(m["loss"]))
+            sync()
+            times.append(time.perf_counter() - t1)
+        launched = _check_launches(mods, _train_launches(cfg, n), device,
+                                   "phase 9 (a)")
+        if cuda:
+            assert launched["flash_attention"] > 0, "the mesh path never " \
+                "launched the attention kernel"
+        want = phase7["losses"][:n]
+        err = max(abs(x - y) / abs(y) for x, y in zip(losses, want))
+        mesh_ms = sorted(times)[len(times) // 2] * 1e3
+        print(f"  losses {losses} against phase 7 (b)'s {want}: max rel "
+              f"diff {err:.2e} (rtol 1e-5)")
+        print(f"  step ms: mesh path {mesh_ms:.2f} (median of {n}, the "
+              f"first included), unsharded {phase7['step_ms']:.2f} (phase "
+              f"7 (b)'s median); mesh / unsharded "
+              f"{mesh_ms / phase7['step_ms']:.3f}  [{card}]")
+        assert err <= 1e-5, (losses, want)
+        del params, opt, step, m, batch
+        if cuda:
+            torch.cuda.empty_cache()
+        # (b) the bucketed all-reduce of a mixed bf16 / f32 tree
+        gen = torch.Generator(device=device).manual_seed(0)
+        tree = {"w": torch.randn(1024, 1024, generator=gen, device=device
+                                 ).to(torch.bfloat16),
+                "b": torch.randn(4096, generator=gen, device=device),
+                "g": {"x": torch.randn(3, 5, generator=gen, device=device),
+                      "y": torch.randn(7, generator=gen, device=device
+                                       ).to(torch.bfloat16)}}
+        got = collectives.bucketed_all_reduce(tree, bucket_bytes=1 << 20)
+        n_buckets = len(collectives.flatten_to_buckets(tree, 1 << 20)[0])
+        assert all(g.dtype == w.dtype and torch.equal(g, w)
+                   for g, w in zip(tree_leaves(got), tree_leaves(tree)))
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+        print(f"-- (b) bucketed_all_reduce of a bf16 / f32 tree ({nbytes} "
+              f"bytes, {n_buckets} buckets of 1 MiB at most): every leaf "
+              f"the world's sum, dtypes kept")
+        # (c) the collective microbenchmark at 1 device
+        spec = microbench.MeasureSpec(
+            suite="full", collective_bytes=par["collective_bytes"],
+            collective_devices=1, reps=par["reps"])
+        recs = []
+        microbench.run_points(microbench.enumerate_points(spec), spec,
+                              recs.append, device=device)
+        assert [r["bytes"] for r in recs] == list(par["collective_bytes"])
+        for r in recs:
+            assert r["t_mean_s"] >= r["t_s"] > 0, r
+            print(f"-- (c) collective {int(r['bytes'])} bytes over 1 rank "
+                  f"({backend}): best {r['t_s'] * 1e6:.1f} us, mean "
+                  f"{r['t_mean_s'] * 1e6:.1f} us of {r['reps']}  [{card}]")
+    finally:
+        dist.destroy_process_group()
+    # (d) a 2-rank mesh, where the host has two cards
+    if cuda and torch.cuda.device_count() > 1:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+             "--arch", train["arch"], "--batch", str(b), "--seq", str(s),
+             "--steps", str(n), "--lr", str(train["lr"]), "--mesh", "1x2"],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        first = [float(line.split()[4]) for line in proc.stdout.splitlines()
+                 if line.startswith("[train] step     0 loss")]
+        assert len(first) == 1 and abs(first[0] - want[0]) <= \
+            1e-3 * abs(want[0]), (first, want[0])
+        print(f"-- (d) torchrun, 2 ranks, mesh 1x2: {n} steps, first loss "
+              f"{first[0]:.4f} against phase 7 (b)'s {want[0]:.4f}")
+    else:
+        cards = torch.cuda.device_count() if cuda else 0
+        print(f"-- (d) the host has {cards} card(s): no 2-rank mesh")
+    print(f"# phase 9: {time.perf_counter() - t0:.2f}s")
+    return launched
+
+
 def _row(name: str, launches: int, res: dict) -> dict:
     row = {"name": name, **KERNELS[name], "launches": launches,
            "max_abs_err": res["max_abs_err"]}
@@ -3247,8 +3426,9 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
         check_len: int, recurrent: dict, steps: int = 40,
         starts: int = 2, search: dict = SEARCH,
         runner: dict = RUNNER, deepflow: dict = DEEPFLOW,
-        train: dict = TRAIN, families: dict = FAMILIES) -> list:
-    """Phases 2-8; returns the per-kernel result objects.  ``cases`` maps
+        train: dict = TRAIN, families: dict = FAMILIES,
+        parallel: dict = PARALLEL) -> list:
+    """Phases 2-9; returns the per-kernel result objects.  ``cases`` maps
     each kernel to its (compared, timed) cases.  ``steps`` x ``starts`` is
     the fit's depth, cut from 80 x 6 since the suite's nine model-step
     points of three archs made each of its evaluations ~5x costlier on
@@ -3295,8 +3475,9 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     t6 = time.perf_counter()
     print(f"# phase 7 (a): {t6 - t5:.2f}s")
     mods = _reset_launches()
+    phase7 = {}
     expected = phase_train(device, train,
-                           workdir.parent / f"{workdir.name}-train")
+                           workdir.parent / f"{workdir.name}-train", phase7)
     expected += phase_train_golden(device)
     expected += phase_remat(device, train["remat"])
     print(f"# phase 7: {time.perf_counter() - t5:.2f}s")
@@ -3315,8 +3496,11 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     if device.type == "cuda":
         assert fam["flash_attention"] > 0, "phase 8 never launched " \
             "flash_attention"
+    # this slice's path: the mesh (phase 9 (a) counts its own launches)
+    meshed = phase_parallel(device, train, phase7, parallel)
     return [_row(name, launches[name] + more[name] + trained[name]
-                 + fam[name], results[name]) for name in KERNELS]
+                 + fam[name] + meshed[name], results[name])
+            for name in KERNELS]
 
 
 def main() -> int:

@@ -9,6 +9,9 @@ The package mirrors ``repro`` (the JAX reference) module for module:
   kernels/    hand-written CUDA kernels for sm_90a with their plain PyTorch
               versions, bound through ctypes (``kernels/csrc``)
   calibrate/  measure -> fit -> profile -> report on the card
+  models/     the LM runtime of every family; launch/ serve and train
+  parallel/   the planner's rules as DTensor placements, collectives,
+              the pipeline, the kernels on each rank's shards
   pathfind.py the CLI (``calibrate`` and ``validate`` subcommands)
 
 Every entry point takes ``device`` and runs on the card unless the caller

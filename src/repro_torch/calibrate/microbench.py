@@ -19,8 +19,15 @@ unless the caller asks for the CPU:
   train_step   the gradient of ``Model.loss_fn`` at smoke size, no
                optimizer (the reference's ``jax.grad(loss)``): the kernels
                forward, their autograd Functions backward
-  collective   not in the port yet: measuring one raises
-               NotImplementedError naming the ROADMAP item that brings it
+  collective   `repro_torch.parallel.collectives.bucketed_all_reduce` of
+               the point's ``bytes`` (a float32 tree) over ``devices``
+               ranks: NCCL over that many cards on ``cuda`` (a host with
+               fewer cards raises before any point is measured), gloo
+               over that many host processes on ``cpu``; in this process
+               where it is in a process group of that many ranks (every
+               rank calls), else, outside any group, in ``devices``
+               spawned processes (the reference's forced-device
+               subprocess)
 
 Measurements stream to ``measurements.jsonl`` with the sweep runner's
 fingerprint/resume discipline: ``spec.json`` pins the enumerated point set
@@ -40,6 +47,9 @@ import dataclasses
 import hashlib
 import json
 import os
+import subprocess
+import sys
+import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -117,8 +127,7 @@ def default_spec(suite: str = "quick", reps: int = 3) -> MeasureSpec:
     quick  GEMM-only: enough signal to anchor compute throughput, memory
            bandwidth, and kernel overhead.
     full   the reference's full suite (adds the hand-written GEMM,
-           elementwise probes, collectives and model-family steps; the
-           collectives are not in the port yet and raise).
+           elementwise probes, collectives and model-family steps).
     slice  what the port runs on the card: the quick GEMMs through
            cuBLAS, the same shapes plus the full-width qwen1.5-0.5b layer
            GEMMs through the hand-written kernel, bandwidth probes, and
@@ -359,12 +368,92 @@ def _measure_train_step(pt: MeasurePoint, spec: MeasureSpec,
     return {"flops": 0.0, "bytes": 0.0, "t_s": best, "t_mean_s": mean}
 
 
-def _not_ported(what: str) -> Callable:
-    def measure(pt: MeasurePoint, spec: MeasureSpec, device) -> Dict:
-        raise NotImplementedError(
-            f"measurement kind {pt.kind!r} is not in the port yet: it "
-            f"comes with {what}")
-    return measure
+def _measure_collective(pt: MeasurePoint, spec: MeasureSpec,
+                        device: torch.device) -> Dict:
+    """`bucketed_all_reduce` of a float32 tree of ``bytes`` over the
+    process group, which must have ``devices`` ranks (`run_points` spawns
+    one where this process is in none)."""
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives
+    n_dev = int(pt.get("devices", 2))
+    size = dist.get_world_size() if dist.is_initialized() else 0
+    if size != n_dev:
+        raise RuntimeError(f"collective point needs a process group of "
+                           f"{n_dev} ranks, this process is in one of "
+                           f"{size} (run it through run_points)")
+    payload_bytes = int(pt.get("bytes"))
+    tree = {"g": torch.ones((max(payload_bytes // 4, 1),),
+                            dtype=torch.float32, device=device)}
+    best, mean = _time_fn(
+        lambda: collectives.bucketed_all_reduce(tree),
+        spec.warmup, spec.reps, device)
+    return {"flops": 0.0, "bytes": float(payload_bytes), "t_s": best,
+            "t_mean_s": mean}
+
+
+_COLLECTIVE_SNIPPET = """
+import json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.calibrate import microbench
+from repro_torch.core.sweepexec import json_safe
+spec = microbench.MeasureSpec.from_dict(json.loads(sys.argv[1]))
+wanted = set(json.loads(sys.argv[2]))
+device, store, rank, world = sys.argv[3], sys.argv[4], int(sys.argv[5]), \
+    int(sys.argv[6])
+torch.set_num_threads(1)
+if device == "cuda":
+    torch.cuda.set_device(rank)
+dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                        init_method="file://" + store, rank=rank,
+                        world_size=world)
+try:
+    for pt in microbench.enumerate_points(spec):
+        if pt.kind == "collective" and pt.key() in wanted:
+            rec = microbench.measure_point(pt, spec, device)
+            if rank == 0:
+                print("MEASURE:" + json.dumps(json_safe(rec)), flush=True)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _collective_processes(spec: MeasureSpec, keys: Sequence[str],
+                          device: torch.device) -> List[Dict]:
+    """The pending collective points (by key) in ``collective_devices``
+    spawned processes, rank r on card r for ``cuda``; rank 0's records.
+    They meet through a file store in a fresh temporary directory (no
+    port)."""
+    import repro_torch
+    n = spec.collective_devices
+    env = dict(os.environ)
+    src = os.path.dirname(os.path.dirname(os.path.abspath(
+        repro_torch.__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH", "")) if p)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _COLLECTIVE_SNIPPET,
+             json.dumps(spec.to_dict()), json.dumps(list(keys)),
+             device.type, store, str(r), str(n)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(n)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"collective process failed: {err[-3000:]}")
+    return [json.loads(line[len("MEASURE:"):])
+            for line in outs[0][0].splitlines()
+            if line.startswith("MEASURE:")]
 
 
 _MEASURERS: Dict[str, Callable[[MeasurePoint, MeasureSpec, torch.device],
@@ -372,8 +461,7 @@ _MEASURERS: Dict[str, Callable[[MeasurePoint, MeasureSpec, torch.device],
     "gemm": _measure_gemm,
     "gemm_pallas": _measure_gemm_pallas,
     "elementwise": _measure_elementwise,
-    "collective": _not_ported("ROADMAP queue 1 item 9 "
-                              "(parallel/collectives.py as NCCL)"),
+    "collective": _measure_collective,
     "train_step": _measure_train_step,
     "prefill": _measure_prefill,
     "decode_step": _measure_decode,
@@ -391,16 +479,45 @@ def measure_point(pt: MeasurePoint, spec: MeasureSpec,
 def run_points(points: Sequence[MeasurePoint], spec: MeasureSpec,
                on_record: Callable[[Dict], None],
                verbose: bool = False, device=None) -> int:
-    """Measure ``points`` in order, invoking ``on_record`` per record."""
+    """Measure ``points`` in order, invoking ``on_record`` per record.
+
+    Collective points run in this process where it is in a process group
+    of ``collective_devices`` ranks (every rank of the group calls and
+    gets the records); outside any group they run all together in that
+    many spawned processes.  A group of another size raises, and so, on
+    ``cuda``, does a host with fewer cards than that, both before any
+    point is measured."""
+    import torch.distributed as dist
     dev = resolve_device(device)
+    coll = [p for p in points if p.kind == "collective"]
+    n_dev = spec.collective_devices
+    if coll and dev.type == "cuda" and torch.cuda.device_count() < n_dev:
+        raise RuntimeError(
+            f"collective points need {n_dev} cards, the host has "
+            f"{torch.cuda.device_count()}")
+    spawned = bool(coll) and not dist.is_initialized()
+    if coll and not spawned and dist.get_world_size() != n_dev:
+        raise RuntimeError(
+            f"collective points need a process group of {n_dev} ranks, "
+            f"this process is in one of {dist.get_world_size()}")
     n = 0
-    for pt in points:
-        rec = measure_point(pt, spec, dev)
+
+    def emit(rec):
+        nonlocal n
         on_record(rec)
         n += 1
         if verbose:
             print(f"# measured {rec['key']}: {rec['t_s'] * 1e6:.1f} us",
                   flush=True)
+
+    if spawned:
+        keys = {p.key() for p in coll}
+        for rec in _collective_processes(spec, sorted(keys), dev):
+            if rec["key"] in keys:
+                emit(rec)
+    for pt in points:
+        if pt.kind != "collective" or not spawned:
+            emit(measure_point(pt, spec, dev))
     return n
 
 

@@ -36,8 +36,9 @@ than the model, and where each goes (ROADMAP queue 1):
     bucketing: item 11 (b) decides on a torch counterpart
     (``compileahead``); nothing here is compiled, so nothing is cached
     but rows (and `evaluate_budgets`' vmapped functions, per skeleton);
-  * ``shard_devices`` and ``evaluate_matrix(devices > 1)``: item 9
-    (parallelism).  One card is one device; asking for more raises;
+  * ``shard_devices`` and ``evaluate_matrix(devices > 1)``: item 9 (b)
+    (the search layer's parallelism).  One card is one device; asking
+    for more raises;
   * `sweep`'s ``strategies_fn`` hook, which nothing sets;
   * `PredictionCache`'s one-key ``get`` / ``put``: the evaluator looks up
     and inserts a batch at a time (``get_many`` / ``put_many``).
@@ -318,8 +319,9 @@ def _skeleton_key(graph_fp: str, strategy: Strategy,
 
 def _item9(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: one card is one device; spreading the batch over several "
-        f"comes with parallelism (ROADMAP queue 1 item 9)")
+        f"{what}: one card is one device; spreading the rows over several "
+        f"cards is the search layer's parallelism (ROADMAP queue 1 item 9 "
+        f"(b)); the runtime's mesh is repro_torch.launch.mesh")
 
 
 class BatchedEvaluator:

@@ -50,7 +50,7 @@ each committed superbatch's checkpoint and at the end — full per-point
 rows never materialize.
 
 Limits of this slice (ROADMAP queue 1), each of which raises naming its
-item: ``devices > 1`` (the reference's ``pmap`` branch: item 9);
+item: ``devices > 1`` (the reference's ``pmap`` branch: item 9 (b));
 ``bucketing`` other than None / False and ``compile_ahead`` other than
 None / 0 (the compile-ahead service and cross-design bucketing: item 11
 (b)).  The port dispatches one group per design skeleton, the reference's
@@ -123,8 +123,8 @@ def check_knobs(devices: Optional[int] = None,
     if devices is not None and devices > 1:
         raise NotImplementedError(
             f"devices={devices}: one card is one device; spreading a "
-            f"superbatch over several comes with parallelism (ROADMAP "
-            f"queue 1 item 9)")
+            f"superbatch over several cards is the search layer's "
+            f"parallelism (ROADMAP queue 1 item 9 (b))")
     if bucketing not in (None, False):
         raise NotImplementedError(
             "bucketing=True (cross-design bucketed dispatch) is not ported "

@@ -45,7 +45,7 @@ is ``python -m repro_torch.pathfind sweep [--scenario serving] [--out DIR]
 Not ported yet, and where each goes (ROADMAP queue 1):
 
   * the ``device`` backend (one chunk sharded over several devices):
-    item 9;
+    item 9 (b);
   * ``enable_compilation_cache`` and the compile counters of `RunStats`
     (``compile_hits``, ``compile_misses``, ``compile_seconds``,
     ``stall_seconds``), with the runner's ``compile_cache``,
@@ -504,13 +504,13 @@ def pick_backend(backend: str = "auto") -> str:
     """``auto`` resolves to the pipelined executor, as in the reference: it
     overlaps host packing, device work and JSONL commits.  The ``device``
     backend (one chunk sharded over several devices) comes with ROADMAP
-    queue 1 item 9 and raises until then."""
+    queue 1 item 9 (b) and raises until then."""
     if backend == "auto":
         return "pipeline"
     if backend == "device":
         raise NotImplementedError(
             "the 'device' backend (a chunk sharded over several devices) "
-            "is not ported yet (ROADMAP queue 1 item 9); the pipeline "
+            "is not ported yet (ROADMAP queue 1 item 9 (b)); the pipeline "
             "backend (the default, 'auto') writes the same records")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected "

@@ -5,4 +5,6 @@
   train.py  training: the planner's plan, the synthetic data pipeline,
             loss + gradient through the kernels, AdamW, checkpoints
             (``python -m repro_torch.launch.train``)
+  mesh.py   the process group (torchrun's, NCCL or gloo) and the
+            ``DeviceMesh`` both run on beyond one device
 """

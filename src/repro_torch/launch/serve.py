@@ -10,17 +10,21 @@ strategy for the mesh, weights come from a seed, prompts from
 through ``decode_step`` token by token (as the reference does, robust
 across families), then ``gen`` tokens are decoded greedily.  Every
 attention call of every step launches the hand-written flash-attention
-kernel.  The port runs on one card: a mesh of more than one device raises
-(sharding is ROADMAP queue 1 item 9).  The LSTM baseline has no decode
-path and raises, as the reference does.  The encoder-decoder steps its
-prompt against the zero cross cache `init_cache` gives it (the
-reference's loop; its encoder runs in `Model.prefill`).
+kernel.  On a mesh (``mesh_shape`` other than 1x1, one process per
+device under ``torchrun``; inside a process group even 1x1) the
+parameters take the plan's placements, the KV and recurrent caches
+`cache_shardings`', each token its batch shard, and every rank launches
+the kernels on its own heads; the greedy tokens are the one-device run's.
+A mesh whose device count is not the world size raises.  The LSTM
+baseline has no decode path and raises, as the reference does.  The
+encoder-decoder steps its prompt against the zero cross cache
+`init_cache` gives it (the reference's loop; its encoder runs in
+`Model.prefill`).
 """
 
 from __future__ import annotations
 
 import argparse
-import math
 import time
 from typing import Dict, Tuple
 
@@ -30,7 +34,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ShapeCell, get_config, reduced
 from repro_torch.core import planner as planner_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import Model, build_model
+from repro_torch.parallel import sharding
+from repro_torch.tree import is_dtensor
 
 
 def _sync(device: torch.device) -> None:
@@ -38,35 +45,61 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _greedy(logits) -> torch.Tensor:
+    """The argmax token of the last position, (batch, 1) int32 (a
+    DTensor's full logits first)."""
+    if is_dtensor(logits):
+        logits = logits.full_tensor()
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+
 def generate(model: Model, params: Dict, prompts: np.ndarray,
-             gen: int) -> Dict:
+             gen: int, plan=None, mesh=None) -> Dict:
     """Prefill ``prompts`` (batch, prompt_len) by stepping them through
     ``decode_step``, then decode ``gen`` tokens greedily.
 
     Returns {"tokens" (batch, gen) int32 numpy, "prefill_s", "decode_s"};
     the times are host-clock seconds, each phase ended by a device
-    synchronise.  Tokens stay on the device until the loop ends."""
+    synchronise.  Tokens stay on the device until the loop ends.  On a
+    mesh (``plan`` and ``mesh``; ``params`` DTensors) the caches take
+    `sharding.cache_shardings` and each step's tokens their batch
+    shards."""
     batch, prompt_len = prompts.shape
     dev = model.device
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    rules = tok_pl = None
+    if mesh is not None:
+        rules = sharding.resolve_rules(plan, mesh)
+        cell = ShapeCell("serve", prompt_len + gen, batch, "decode")
+        tok_pl = sharding.batch_shardings(model.cfg, cell, plan,
+                                          mesh)["tokens"]
+
+    def step(caches, tokens, pos):
+        if mesh is not None:
+            tokens = sharding.distribute(tokens, mesh, tok_pl)
+        return model.decode_step(params, caches, tokens, pos, rules=rules,
+                                 mesh=mesh)
+
     with torch.no_grad():
         caches = model.init_cache(batch, prompt_len + gen)
+        if mesh is not None:
+            caches = sharding.distribute(caches, mesh, sharding.
+                                         cache_shardings(model.cfg, plan,
+                                                         mesh, caches))
         t0 = time.perf_counter()
         logits = None
         for t in range(prompt_len):
-            logits, caches = model.decode_step(params, caches,
-                                               toks[:, t:t + 1], t)
+            logits, caches = step(caches, toks[:, t:t + 1], t)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
 
         out_tokens = []
-        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        cur = _greedy(logits)
         t0 = time.perf_counter()
         for t in range(gen):
             out_tokens.append(cur)
-            logits, caches = model.decode_step(params, caches, cur,
-                                               prompt_len + t)
-            cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            logits, caches = step(caches, cur, prompt_len + t)
+            cur = _greedy(logits)
         _sync(dev)
         decode_s = time.perf_counter() - t0
     return {"tokens": torch.cat(out_tokens, dim=1).cpu().numpy(),
@@ -81,11 +114,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     if not greedy:
         raise NotImplementedError("serve decodes greedily only, as the "
                                   "reference does")
-    if math.prod(mesh_shape) != 1:
-        raise NotImplementedError(
-            f"mesh {mesh_shape}: the port serves on one card; sharding "
-            f"across devices is ROADMAP queue 1 item 9")
     dev = resolve_device(device)
+    mesh = mesh_lib.runtime_mesh(mesh_shape, dev)
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
@@ -93,14 +123,18 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     if not model.has_decode:
         raise ValueError(f"{arch} has no decode path")
     cell = ShapeCell("serve", prompt_len + gen, batch, "decode")
-    axes = ("pod", "data", "model")[-len(mesh_shape):]
-    plan = planner_lib.plan(cfg, cell, mesh_shape, axes, device=dev)
+    axes = mesh_lib.default_axes(tuple(mesh_shape))
+    plan = planner_lib.plan(cfg, cell, tuple(mesh_shape), axes, device=dev)
 
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            (batch, prompt_len)).astype(np.int32)
-    params = model.init(seed)
-    out = generate(model, params, prompts, gen)
+    if mesh is None:
+        params = model.init(seed)
+    else:
+        params = model.init(seed, shardings=sharding.param_shardings(
+            model, plan, mesh), mesh=mesh)
+    out = generate(model, params, prompts, gen, plan, mesh)
     return {**out,
             "tok_per_s": batch * gen / max(out["decode_s"], 1e-9),
             "plan": plan.strategy.name}

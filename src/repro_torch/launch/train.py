@@ -1,18 +1,28 @@
 """End-to-end training entry point, as ``repro.launch.train``.
 
-Wires the stack on one device: the DeepFlow planner (the CrossFlow-
-predicted plan for the ``train`` cell) -> the train step (loss + gradient
-through the hand-written kernels' autograd Functions, optional bf16 or
-int8 error-feedback gradient compression, remat, AdamW) -> the synthetic
-data pipeline with prefetch -> async atomic checkpointing -> preemption
-handler + straggler watchdog.  Meshes other than 1x1 raise: sharding
-(DTensor or FSDP), NCCL collectives and the pipeline are ROADMAP queue 1
-item 9.
+Wires the stack: the DeepFlow planner (the CrossFlow-predicted plan for
+the ``train`` cell) -> the mesh and the plan's placements
+(`repro_torch.parallel.sharding`) -> the train step (loss + gradient
+through the hand-written kernels' autograd Functions, the gradients
+pinned to the parameters' placements, optional bf16 or int8
+error-feedback gradient compression, remat, AdamW with ZeRO-1 moments)
+-> the synthetic data pipeline with prefetch (each rank keeps its DP
+shard of the global batch) -> async atomic checkpointing (restorable onto
+another mesh shape) -> preemption handler + straggler watchdog.
+
+A mesh (``--mesh 2x2``) needs one process per device: run it under
+``torchrun --nproc-per-node N`` (NCCL on the card, gloo with ``--device
+cpu``); its device count must be the world size, or it raises.  At 1x1
+without a process group the step runs on plain tensors, as before the
+mesh path existed; inside a process group even 1x1 takes the mesh path.
+Losses are printed by rank 0.
 
 CLI:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --steps 100 --batch 8 --seq 128 --mesh 1x1 --ckpt-dir /tmp/ckpt \\
         [--reduced] [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --reduced --mesh 2x2 --steps 3
 """
 
 from __future__ import annotations
@@ -20,10 +30,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import optim, resolve_device
 from repro_torch.checkpoint import CheckpointManager
@@ -31,10 +43,13 @@ from repro_torch.configs.base import ArchConfig, ShapeCell, get_config, \
     reduced
 from repro_torch.core import planner as planner_lib
 from repro_torch.data import DataConfig, PrefetchIterator
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import Model, build_model
+from repro_torch.parallel import replicating, sharding
 from repro_torch.runtime import PreemptionHandler, StragglerWatchdog, \
     compress, decompress, init_error_state
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import is_dtensor, tree_leaves, tree_map, \
+    tree_unflatten
 
 
 @dataclasses.dataclass
@@ -74,21 +89,39 @@ class TrainState:
                           t.get("err"))
 
 
+def item(x) -> float:
+    """A scalar metric as a host float (a DTensor's full value)."""
+    return float(x.full_tensor() if is_dtensor(x) else x)
+
+
 def make_train_step(model: Model, cfg: ArchConfig,
-                    opt_cfg: optim.AdamWConfig, remat, compression: str):
+                    opt_cfg: optim.AdamWConfig, remat, compression: str,
+                    rules=None, mesh=None):
     """The step: (params, opt_state, err_state, batch) -> the same, updated
     (params and moments in place, see `optim.apply`), and metrics
     (``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``, device tensors).
-    ``batch`` lies on the parameters' device."""
+    ``batch`` lies on the parameters' device.
+
+    On a mesh (``rules`` and ``mesh``; parameters, moments and batch are
+    DTensors) the forward and the backward run under DTensor's implicit
+    replication, and each gradient is pinned to its parameter's
+    placements (the reference's ``grad_shardings``): a ``Partial``
+    gradient is reduced (reduce-scatter over the data axis, the DP
+    mean's all-reduce), so the optimizer updates each rank's shards."""
     if compression not in ("none", "bf16", "int8"):
         raise ValueError(f"grad compression {compression!r}: none, bf16 or "
                          f"int8")
 
     def step_fn(params, opt_state, err_state, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = model.loss_fn(live, batch, remat=remat)
-        leaves = tree_leaves(live)
-        grads = tree_unflatten(live, torch.autograd.grad(loss, leaves))
+        with replicating(mesh is not None):
+            loss, metrics = model.loss_fn(live, batch, remat=remat,
+                                          rules=rules, mesh=mesh)
+            leaves = tree_leaves(live)
+            grads = tree_unflatten(live, torch.autograd.grad(loss, leaves))
+            if mesh is not None:
+                grads = tree_map(lambda g, p: g.redistribute(
+                    p.device_mesh, p.placements), grads, params)
         del live, leaves
         if compression == "bf16":
             # halve the DP all-reduce volume; optimizer math stays fp32
@@ -106,33 +139,39 @@ def make_train_step(model: Model, cfg: ArchConfig,
 
 
 def setup(tc: TrainConfig):
-    """(cfg, model, plan, device): the arch, the model on the device, and
-    the planner's plan for the ``train`` cell of this batch and length."""
-    if math.prod(tc.mesh_shape) != 1:
-        raise NotImplementedError(
-            f"mesh {tuple(tc.mesh_shape)}: the port trains on one device; "
-            f"sharding (DTensor or FSDP), NCCL collectives and the pipeline "
-            f"are ROADMAP queue 1 item 9")
+    """(cfg, model, plan, device, mesh): the arch, the model on the device,
+    the planner's plan for the ``train`` cell of this batch and length,
+    and the mesh (None on the one-device path)."""
     dev = resolve_device(tc.device)
+    mesh = mesh_lib.runtime_mesh(tc.mesh_shape, dev)
     cfg = get_config(tc.arch)
     if tc.use_reduced_config:
         cfg = reduced(cfg)
     model = build_model(cfg, dev)
     cell = ShapeCell("train", tc.seq_len, tc.global_batch, "train")
-    axes = ("pod", "data", "model")[-len(tc.mesh_shape):]
+    axes = mesh_lib.default_axes(tuple(tc.mesh_shape))
     plan = planner_lib.plan(cfg, cell, tuple(tc.mesh_shape), axes,
                             device=dev)
-    return cfg, model, plan, dev
+    return cfg, model, plan, dev, mesh
 
 
 def train(tc: TrainConfig) -> Dict[str, Any]:
     """The loop: resume from ``ckpt_dir``'s latest checkpoint if it has
     one, then steps from there to ``tc.steps``.  Returns the reference's
     dict: history (losses), final_loss, stragglers, state, plan."""
-    cfg, model, plan, dev = setup(tc)
+    cfg, model, plan, dev, mesh = setup(tc)
     opt_cfg = optim.AdamWConfig(lr=tc.lr, warmup_steps=tc.warmup,
                                 total_steps=max(tc.steps, 1))
-    params = model.init(tc.seed)
+    rules = bsh = None
+    main = mesh is None or dist.get_rank() == 0
+    if mesh is None:
+        params = model.init(tc.seed)
+    else:
+        cell = ShapeCell("train", tc.seq_len, tc.global_batch, "train")
+        rules = sharding.resolve_rules(plan, mesh)
+        bsh = sharding.batch_shardings(cfg, cell, plan, mesh)
+        params = model.init(tc.seed, shardings=sharding.param_shardings(
+            model, plan, mesh), mesh=mesh)
     state = TrainState(params, optim.init(params),
                        init_error_state(params)
                        if tc.grad_compression == "int8" else None)
@@ -142,10 +181,11 @@ def train(tc: TrainConfig) -> Dict[str, Any]:
     if ckpt and ckpt.latest_step() is not None:
         state = TrainState.from_tree(ckpt.restore(like=state.as_tree()))
         start_step = int(state.opt_state.step)
-        print(f"[train] resumed from step {start_step}")
+        if main:
+            print(f"[train] resumed from step {start_step}")
 
     step_fn = make_train_step(model, cfg, opt_cfg, tc.remat,
-                              tc.grad_compression)
+                              tc.grad_compression, rules, mesh)
     data_cfg = DataConfig(global_batch=tc.global_batch, seq_len=tc.seq_len,
                           seed=tc.seed)
     it = PrefetchIterator(data_cfg, cfg, start_step=start_step)
@@ -159,22 +199,26 @@ def train(tc: TrainConfig) -> Dict[str, Any]:
                 break
             batch = {k: v.to(dev, non_blocking=True)
                      for k, v in batch.items()}
+            if mesh is not None:        # each rank keeps its DP shard
+                batch = sharding.distribute(
+                    batch, mesh, {k: bsh[k] for k in batch})
             state.params, state.opt_state, state.err_state, metrics = \
                 step_fn(state.params, state.opt_state, state.err_state,
                         batch)
-            loss = float(metrics["loss"])
+            loss = item(metrics["loss"])
             now = time.time()
             watchdog.observe(step, now - t_prev)
             t_prev = now
             history.append(loss)
-            if step % tc.log_every == 0:
+            if step % tc.log_every == 0 and main:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.3f}")
+                      f"lr {item(metrics['lr']):.2e} "
+                      f"gnorm {item(metrics['grad_norm']):.3f}")
             if ckpt and step and step % tc.ckpt_every == 0:
                 ckpt.save(step, state.as_tree())
             if preempt.preempted:
-                print("[train] preemption: saving and exiting")
+                if main:
+                    print("[train] preemption: saving and exiting")
                 if ckpt:
                     ckpt.save(step, state.as_tree(), block=True)
                 break
@@ -196,7 +240,8 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", default="1x1",
-                    help="e.g. 1x1 (the only mesh the port trains on)")
+                    help="e.g. 2x2 (data x model); one process per device "
+                         "(torchrun --nproc-per-node 4)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--remat", action="store_true")
@@ -213,10 +258,15 @@ def main(argv=None) -> None:
                      lr=args.lr, ckpt_dir=args.ckpt_dir, remat=args.remat,
                      grad_compression=args.compression,
                      use_reduced_config=args.reduced, device=args.device)
+    if math.prod(tc.mesh_shape) > 1 or "WORLD_SIZE" in os.environ:
+        mesh_lib.init_distributed(tc.device)     # torchrun's process group
     out = train(tc)
-    print(f"[train] done: final loss {out['final_loss']:.4f} "
-          f"({len(out['history'])} steps, "
-          f"{len(out['stragglers'])} straggler events)")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"[train] done: final loss {out['final_loss']:.4f} "
+              f"({len(out['history'])} steps, "
+              f"{len(out['stragglers'])} straggler events)")
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

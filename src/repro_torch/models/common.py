@@ -7,14 +7,23 @@ materialises it into a tree of tensors with the reference's layout, so
 weights cross between the packages leaf for leaf
 (`repro_torch.models.convert`).
 
-Logical axes used by params (the sharding vocabulary of the reference,
-kept for the sharding slice of the port):
+Logical axes used by params (the reference's sharding vocabulary; the
+planner's rules map them onto mesh axes, `repro_torch.parallel.sharding`):
     layers   stacked layer axis (never sharded)
     vocab    embedding/logits vocabulary dim        -> model
     fsdp     the weight dim sharded ZeRO-3-style    -> data (big archs)
     heads    attention projection out dim           -> model
     mlp      ffn hidden                             -> model
-and by activations: batch, act_seq, act_embed, act_heads.
+    experts  MoE expert axis                        -> model (EP)
+and by activations:
+    batch -> (pod, data);  act_seq, act_embed -> replicated;
+    act_heads -> model;  kv_seq -> model only under SP (long_500k).
+
+On a mesh the parameters are DTensors and `logical` is a real constraint:
+it redistributes an activation to the placements its logical axes
+resolve to, where the reference constrains the compiler's layout.  On one
+device without a mesh it is the identity, and nothing here touches
+DTensor.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.tree import tree_map
+from repro_torch.tree import is_dtensor, tree_map
 from repro_torch.kernels.ref import NEG_INF
 
 # ---------------------------------------------------------------------------
@@ -53,7 +62,7 @@ def is_def(x) -> bool:
 
 
 def tree_init(defs, seed: int = 0, dtype: torch.dtype = torch.float32,
-              device=None):
+              device=None, place=None):
     """Materialise a ParamDef tree into tensors on ``device`` (default: the
     card).
 
@@ -61,7 +70,13 @@ def tree_init(defs, seed: int = 0, dtype: torch.dtype = torch.float32,
     tree_init``; the random bits come from one ``torch.Generator`` seeded
     with ``seed`` and drawn leaf by leaf in that order, so they differ from
     JAX's (tests hand the reference's weights over with
-    `repro_torch.models.convert.params_from_numpy`)."""
+    `repro_torch.models.convert.params_from_numpy`).
+
+    ``place(path, tensor)``, where given, takes each leaf as it is drawn
+    (``path`` the tuple of its keys) and returns what the tree holds: on a
+    mesh, the rank's shard of it (`repro_torch.parallel.sharding.
+    distribute`), so no more than one full leaf is held at a time and the
+    values are the one-device init's."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -77,24 +92,133 @@ def tree_init(defs, seed: int = 0, dtype: torch.dtype = torch.float32,
         return torch.randn(d.shape, generator=gen, dtype=torch.float32,
                            device=dev).mul_(scale).to(dtype)
 
-    def walk(tree):                 # sorted keys: the reference's order
+    def walk(tree, path):           # sorted keys: the reference's order
         if isinstance(tree, dict):
-            return {key: walk(tree[key]) for key in sorted(tree)}
-        return mk(tree)
+            return {key: walk(tree[key], path + (key,))
+                    for key in sorted(tree)}
+        return mk(tree) if place is None else place(path, mk(tree))
 
-    return walk(defs)
+    return walk(defs, ())
+
+
+def tree_abstract(defs, dtype: torch.dtype = torch.float32):
+    """The parameters' shapes and dtype as meta tensors (no storage)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
+
+
+def tree_pspecs(defs, rules: Dict[str, Optional[Tuple[str, ...]]]):
+    """ParamDef tree -> spec tree (the reference's ``PartitionSpec`` as a
+    tuple of per-dim entries, each None or a tuple of mesh axes) via the
+    logical-axis rules."""
+    def spec(d: ParamDef):
+        parts = []
+        for ax in d.axes:
+            r = rules.get(ax) if ax is not None else None
+            parts.append(None if r is None else
+                         (r,) if isinstance(r, str) else tuple(r))
+        return tuple(parts)
+    return tree_map(spec, defs)
+
+
+def rules_from_plan(plan_rules) -> Dict[str, Optional[Tuple[str, ...]]]:
+    base = {k: v for k, v in plan_rules}
+    # param-axis defaults derived from the activation rules
+    base.setdefault("layers", None)
+    base.setdefault("fsdp", base.get("batch") and ("data",) or None)
+    base.setdefault("act_heads", base.get("heads"))
+    base.setdefault("act_embed", None)
+    base.setdefault("act_seq", None)
+    return base
 
 
 def tree_index(tree, i: int):
-    """Slice ``i`` of a tree stacked along a leading axis (views)."""
+    """Slice ``i`` of a tree stacked along a leading axis (views; a
+    DTensor's slice keeps the placements of its other dims)."""
     return tree_map(lambda t: t[i], tree)
 
 
-def logical(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.Tensor:
-    """Activation sharding constraint by logical axes.  The identity: the
-    port runs on one card, and sharding is a later slice (ROADMAP queue 1
-    item 9); the calls mark where the reference constrains."""
-    return x
+DP_AXES = ("pod", "data")
+
+
+def gather_dp(tree):
+    """Parameters ready for use: each DTensor leaf's shards over the DP
+    axes (``fsdp`` -> ``data``: ZeRO-style storage) gathered, its shards
+    over ``model`` (tensor parallelism) kept; GSPMD's gather of an
+    FSDP-sharded weight before its product.  The gradient goes back to
+    the stored layout as a reduce-scatter.  Plain tensors as they are."""
+    def one(t):
+        if not is_dtensor(t):
+            return t
+        from torch.distributed.tensor import Replicate
+        pl = tuple(Replicate() if name in DP_AXES else p for name, p in
+                   zip(t.device_mesh.mesh_dim_names, t.placements))
+        if pl == tuple(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, pl)
+    return tree_map(one, tree)
+
+
+def layer_params(tree, i: int):
+    """Layer ``i``'s parameters from a stacked tree, ready for use
+    (`gather_dp`: one layer gathered at a time)."""
+    return gather_dp(tree_index(tree, i))
+
+
+def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[tokens]``; on a mesh (a DTensor table, the vocabulary
+    possibly sharded) the embedding lookup, which gives the same rows."""
+    if is_dtensor(table):
+        from repro_torch.parallel import shards
+        return shards.embedding(table, tokens)
+    return table[tokens.long()]
+
+
+def write_(dst: torch.Tensor, index: Tuple, src: torch.Tensor) -> None:
+    """``dst[index] = src`` in place (a cache write).  On a mesh each rank
+    writes its own shard: ``src`` takes ``dst``'s placements, and
+    ``index`` may cut only dims ``dst`` does not shard."""
+    if not is_dtensor(dst):
+        dst[index] = src
+        return
+    from repro_torch.parallel import shards
+    for p in dst.placements:
+        d = getattr(p, "dim", None)
+        if d is not None and d < len(index) and index[d] != slice(None):
+            raise ValueError(f"write_: index {index} cuts dim {d}, which "
+                             f"{tuple(dst.placements)} shards")
+    dst.to_local()[index] = shards.to_placements(
+        src, dst.device_mesh, dst.placements).to_local()
+
+
+def logical(x: torch.Tensor, axes: Tuple[Optional[str], ...],
+            rules: Optional[Dict] = None, mesh=None) -> torch.Tensor:
+    """Activation sharding constraint by logical axes: a DTensor is
+    redistributed to the placements ``axes`` resolve to under ``rules`` on
+    ``mesh``.  Mesh axes the mesh lacks, or that an earlier dim already
+    claimed, are dropped, as the reference drops them; so is an entry
+    whose devices do not divide its dim (replicated instead).  Without
+    rules or mesh, and for a plain tensor, the identity."""
+    if rules is None or mesh is None or not is_dtensor(x):
+        return x
+    from repro_torch.parallel import sharding
+    names = sharding.mesh_axes(mesh)
+    parts = []
+    used = set()
+    for ax in axes:
+        r = rules.get(ax) if ax is not None else None
+        if isinstance(r, str):
+            r = (r,)
+        if r is not None:
+            r = tuple(a for a in r if a in names and a not in used) or None
+            if r:
+                used.update(r)
+        parts.append(r)
+    spec = sharding.guard_spec(mesh, tuple(parts), tuple(x.shape))
+    pl = sharding.placements(mesh, spec)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +304,10 @@ def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     never see them; keeps the padded shape."""
     if logits.shape[-1] <= vocab:
         return logits
+    if is_dtensor(logits):          # the same values, on any vocab shard
+        keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
+        return torch.where(keep, logits, torch.full(
+            (), NEG_INF, dtype=logits.dtype, device=logits.device))
     out = logits.clone()
     out[..., vocab:] = NEG_INF
     return out
@@ -209,7 +337,18 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
-    """Mean next-token CE; logits (..., vocab), labels int (...,)."""
+    """Mean next-token CE; logits (..., vocab), labels int (...,).  On a
+    mesh the logits keep their batch shards and gather the rest (the
+    vocabulary) before the lookup of each label; the mean reduces across
+    the batch shards."""
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = logits.device_mesh
+        pl = tuple(p if p == Shard(0) else Replicate()
+                   for p in logits.placements)
+        logits = logits.redistribute(mesh, pl)
+        if is_dtensor(labels):
+            labels = labels.redistribute(mesh, pl)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)

@@ -64,42 +64,46 @@ def encdec_defs(cfg: ArchConfig) -> Dict:
     }
 
 
-def _enc_block(p, x, cfg):
+def _enc_block(p, x, cfg, rules, mesh):
     h = common.norm(cfg.norm_kind, x, p["ln1"])
-    a, _ = attention_apply(p["attn"], h, cfg, causal=False)
+    a, _ = attention_apply(p["attn"], h, cfg, causal=False, rules=rules,
+                           mesh=mesh)
     x = x + a
     h = common.norm(cfg.norm_kind, x, p["ln2"])
-    return x + ffn_apply(p["ffn"], h, cfg)
+    return x + ffn_apply(p["ffn"], h, cfg, rules, mesh)
 
 
-def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig
-           ) -> torch.Tensor:
+def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig, *,
+           rules=None, mesh=None) -> torch.Tensor:
     """(batch, frames, d_model) frame embeddings -> encoder states."""
     x = frames.to(_adtype(cfg))
     x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model,
                                         x.device).to(x.dtype)[None]
+    x = common.logical(x, ("batch", "act_seq", "act_embed"), rules, mesh)
     for i in range(cfg.n_encoder_layers):
-        x = _enc_block(common.tree_index(params["enc"], i), x, cfg)
+        x = _enc_block(common.layer_params(params["enc"], i), x, cfg, rules,
+                       mesh)
     return common.norm(cfg.norm_kind, x, params["enc_norm"])
 
 
 def _dec_block(p, x, cfg, enc_out, self_cache=None, cross_cache=None,
-               pos=None):
+               pos=None, rules=None, mesh=None):
     h = common.norm(cfg.norm_kind, x, p["ln1"])
     a, _ = attention_apply(p["self"], h, cfg, causal=True, cache=self_cache,
-                           pos=pos)
+                           pos=pos, rules=rules, mesh=mesh)
     x = x + a
     h = common.norm(cfg.norm_kind, x, p["lnx"])
     a, _ = attention_apply(p["cross"], h, cfg, causal=False,
                            kv_source=enc_out, cache=cross_cache,
-                           cross_cache_only=enc_out is None)
+                           cross_cache_only=enc_out is None, rules=rules,
+                           mesh=mesh)
     x = x + a
     h = common.norm(cfg.norm_kind, x, p["ln2"])
-    return x + ffn_apply(p["ffn"], h, cfg)
+    return x + ffn_apply(p["ffn"], h, cfg, rules, mesh)
 
 
 def _embed_tokens(params, cfg, tokens):
-    x = params["embed"][tokens.long()].to(_adtype(cfg))
+    x = common.lookup(params["embed"], tokens).to(_adtype(cfg))
     pe = common.sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device)
     return x + pe.to(x.dtype)[None]
 
@@ -107,21 +111,26 @@ def _embed_tokens(params, cfg, tokens):
 def _logits(params, cfg, x):
     x = common.norm(cfg.norm_kind, x, params["dec_norm"])
     return common.mask_padded_vocab(
-        (x @ params["embed"].t().to(x.dtype)).float(), cfg.vocab_size)
+        (x @ common.gather_dp(params["embed"].t()).to(x.dtype)).float(),
+        cfg.vocab_size)
 
 
 def forward(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
-            cfg: ArchConfig, *, remat=False) -> torch.Tensor:
+            cfg: ArchConfig, *, remat=False, rules=None, mesh=None
+            ) -> torch.Tensor:
     """Training forward: (frame embeddings, decoder tokens) -> logits.
     ``remat`` (any true value) checkpoints each decoder layer, as the
     reference's ``jax.checkpoint(body)``."""
-    enc_out = encode(params, frames, cfg)
+    enc_out = encode(params, frames, cfg, rules=rules, mesh=mesh)
     x = _embed_tokens(params, cfg, tokens)
-    body = _rematted(lambda x, lp: _dec_block(lp, x, cfg, enc_out),
+    x = common.logical(x, ("batch", "act_seq", "act_embed"), rules, mesh)
+    body = _rematted(lambda x, lp: _dec_block(lp, x, cfg, enc_out,
+                                              rules=rules, mesh=mesh),
                      bool(remat))
     for i in range(cfg.n_layers):
-        x = body(x, common.tree_index(params["dec"], i))
-    return _logits(params, cfg, x)
+        x = body(x, common.layer_params(params["dec"], i))
+    return common.logical(_logits(params, cfg, x),
+                          ("batch", "act_seq", "vocab"), rules, mesh)
 
 
 def init_cache(cfg: ArchConfig, batch: int, enc_len: int,
@@ -142,7 +151,8 @@ def init_cache(cfg: ArchConfig, batch: int, enc_len: int,
 def prefill(params: Dict, frames: torch.Tensor, cfg: ArchConfig, *,
             dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Encode, then each decoder layer's cross K/V (with their biases)
-    into the cache; empty self caches."""
+    into the cache; empty self caches.  One device: on a mesh the caches
+    are laid out by the caller (`repro_torch.launch.serve`)."""
     enc_out = encode(params, frames, cfg)
     b, s = frames.shape[:2]
     nkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -159,26 +169,27 @@ def prefill(params: Dict, frames: torch.Tensor, cfg: ArchConfig, *,
 
 
 def decode_step(params: Dict, caches: Dict, tokens: torch.Tensor, pos: int,
-                cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+                cfg: ArchConfig, rules=None, mesh=None
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decoder token against the self cache (a ring of ``decoder_len``)
     and the cross cache; both updated in place (the cross cache is only
     read).  ``pos`` is a host int."""
-    x = params["embed"][tokens.long()].to(_adtype(cfg))
+    x = common.lookup(params["embed"], tokens).to(_adtype(cfg))
     pe = common.sinusoidal_positions(cfg.decoder_len, cfg.d_model, x.device)
     row = min(max(int(pos), 0), cfg.decoder_len - 1)
     x = x + pe[row:row + 1].to(x.dtype)[None]
     for i in range(cfg.n_layers):
-        lp = common.tree_index(params["dec"], i)
+        lp = common.layer_params(params["dec"], i)
         sc = common.tree_index(caches["self"], i)
         cc = common.tree_index(caches["cross"], i)
-        x = _dec_block(lp, x, cfg, None, sc, cc, int(pos))
+        x = _dec_block(lp, x, cfg, None, sc, cc, int(pos), rules, mesh)
     return _logits(params, cfg, x), caches
 
 
-def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, remat=False
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, remat=False,
+            rules=None, mesh=None) -> Tuple[torch.Tensor, Dict]:
     logits = forward(params, batch["frames"], batch["tokens"], cfg,
-                     remat=remat)
+                     remat=remat, rules=rules, mesh=mesh)
     ce = common.cross_entropy(logits, batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}

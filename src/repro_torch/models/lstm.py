@@ -53,21 +53,23 @@ def _lstm_layer(wx, wh, b, x):
     return torch.stack(out, dim=1)
 
 
-def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig
-            ) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
-    lp = params["layers"]
+def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
+            rules=None, mesh=None) -> torch.Tensor:
+    x = common.lookup(params["embed"], tokens)
+    x = common.logical(x, ("batch", "act_seq", "act_embed"), rules, mesh)
+    lp = common.gather_dp(params["layers"])
     for i in range(cfg.n_layers):
         x = _lstm_layer(lp["wx"][i], lp["wh"][i], lp["b"][i], x)
     return common.mask_padded_vocab(
-        (x @ params["head"].to(x.dtype)).float(), cfg.vocab_size)
+        (x @ common.gather_dp(params["head"]).to(x.dtype)).float(),
+        cfg.vocab_size)
 
 
-def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, remat=False
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, remat=False,
+            rules=None, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token cross-entropy; ``remat`` is accepted and unused,
     as in the reference."""
-    logits = forward(params, batch["tokens"], cfg)
+    logits = forward(params, batch["tokens"], cfg, rules=rules, mesh=mesh)
     ce = common.cross_entropy(logits, batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}

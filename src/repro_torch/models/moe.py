@@ -24,6 +24,17 @@ the reference leaves them to XLA outside any Pallas kernel.  Each layer
 casts its own expert weights to the activation dtype.
 
 Auxiliary load-balancing loss (Switch / GShard): E * sum_e f_e * p_e.
+
+On a mesh (DTensor ``x``, `_mesh_apply`): the routing and the index math
+stay on each rank's tokens and the expert products are DTensor products,
+as the reference's GSPMD partitions them.  ``grouped_tp`` takes G =
+``cfg.moe_groups`` or the DP degree (``data`` x ``pod``, the reference's
+rule), so each DP shard dispatches its own groups and the only
+collective left is the down-projection's reduction over ``model`` (the
+experts' hidden dim).  ``scatter_ep`` keeps one buffer for all tokens:
+every rank routes the whole batch and the experts are computed where the
+``experts`` axis puts them (EP over ``model``), then gathered.  The aux
+loss sums each rank's expert counts and probabilities across shards.
 """
 
 from __future__ import annotations
@@ -193,9 +204,96 @@ def _grouped_dispatch(params: Dict, x: torch.Tensor, cfg: ArchConfig
     return out.reshape(b, s, d), _aux(probs, flat_e, e)
 
 
-def moe_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _groups(cfg: ArchConfig, t: int, mesh) -> int:
+    """grouped_tp's G: ``cfg.moe_groups``, else the DP degree on a mesh
+    and 1 without; cut to a divisor of the token count."""
+    g = cfg.moe_groups
+    if not g:
+        from repro_torch.parallel.sharding import mesh_shape
+        sizes = mesh_shape(mesh) if mesh is not None else {}
+        g = sizes.get("data", 1) * sizes.get("pod", 1)
+    g = max(min(g, t), 1)
+    while t % g:
+        g -= 1
+    return g
+
+
+def _mesh_apply(params: Dict, x, cfg: ArchConfig, mesh
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_apply` on DTensors: the dispatch on each rank's tokens, the
+    expert products as DTensor products (see the module docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    grouped = cfg.moe_impl == "grouped_tp"
+    b, s, d = x.shape
+    t = b * s
+    kk, e = cfg.experts_per_token, cfg.n_experts
+    xmesh = x.device_mesh
+    g = _groups(cfg, t, mesh) if grouped else 1
+    # tokens: each rank keeps its batch shard where its groups are whole
+    # there (grouped_tp), else every rank takes all of them
+    bpl = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    ndp = 1
+    for i, p in enumerate(bpl):
+        ndp *= xmesh.size(i) if p == Shard(0) else 1
+    if not grouped or g % ndp or b % ndp:
+        bpl, ndp = (Replicate(),) * xmesh.ndim, 1
+    x = x.redistribute(xmesh, bpl)
+    xl = x.to_local()
+    gl, tl = max(g // ndp, 1), t // g
+    xt = xl.reshape(gl, tl, d)
+    # the router on each rank's tokens: its gradient is Partial over them
+    part = tuple(Partial() if p == Shard(0) else Replicate() for p in bpl)
+    router = {"router": {"w": params["router"]["w"].redistribute(
+        xmesh, (Replicate(),) * xmesh.ndim).to_local(grad_placements=part)}}
+    probs, topw, topi = route(router, xt, cfg)              # (gl, tl, k)
+    cap = capacity(cfg, tl, grouped=grouped) if grouped else \
+        capacity(cfg, t)
+    flat_e = topi.reshape(gl, tl * kk)
+    flat_t = torch.arange(tl * kk, device=xl.device) // kk
+    order, slot, keep = _slots(flat_e, e, cap)
+    src = torch.gather(xt, 1, flat_t[order][..., None].expand(-1, -1, d))
+    buf = torch.zeros((gl, e * cap + 1, d), dtype=xl.dtype, device=xl.device)
+    buf = buf.scatter(1, slot[..., None].expand(-1, -1, d), src)
+    buf = buf[:, :-1].reshape(gl, e, cap, d)
+
+    # the expert products on the mesh: TP over the hidden dim (grouped_tp)
+    # or EP over the experts (scatter_ep), reduced back to the tokens'
+    # layout
+    buf = DTensor.from_local(buf, xmesh, bpl, run_check=False)
+    wi = params["experts"]["wi"].to(xl.dtype)
+    wo = params["experts"]["wo"].to(xl.dtype)
+    h = _act(torch.einsum("gecd,edf->gecf", buf, wi), cfg.ffn_kind)
+    out_buf = torch.einsum("gecf,efd->gecd", h, wo)
+    out_buf = out_buf.redistribute(xmesh, bpl).to_local()
+
+    flat_out = out_buf.reshape(gl, e * cap, d)
+    safe = torch.clamp(slot, 0, e * cap - 1)
+    gathered = torch.gather(flat_out, 1, safe[..., None].expand(-1, -1, d))
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=xl.dtype, device=xl.device))
+    unsort = torch.zeros((gl, tl * kk, d), dtype=xl.dtype, device=xl.device)
+    unsort = unsort.scatter(1, order[..., None].expand(-1, -1, d), gathered)
+    out = torch.einsum("gtkd,gtk->gtd", unsort.reshape(gl, tl, kk, d),
+                       topw.to(xl.dtype))
+    out = DTensor.from_local(out.reshape(xl.shape), xmesh, bpl,
+                             run_check=False)
+    if cfg.n_shared_experts:
+        out = out + _shared(params, x, cfg)
+    # aux: this rank's expert counts and probability sums, summed over
+    # the ranks that hold other tokens
+    counts = torch.bincount(flat_e.reshape(-1), minlength=e).float()
+    counts = DTensor.from_local(counts, xmesh, part, run_check=False)
+    psum = DTensor.from_local(probs.reshape(-1, e).sum(0), xmesh, part,
+                              run_check=False)
+    aux = e * torch.sum((counts / (t * kk)) * (psum / t))
+    return out, aux
+
+
+def moe_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, rules=None,
+              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (batch, seq, d) -> (out, aux_loss)."""
+    if common.is_dtensor(x):
+        return _mesh_apply(params, x, cfg, mesh)
     if cfg.moe_impl == "grouped_tp":
         return _grouped_dispatch(params, x, cfg)
     b, s, d = x.shape

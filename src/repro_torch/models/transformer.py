@@ -107,7 +107,7 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                     causal: bool = True, window: Optional[int] = None,
                     cache: Optional[Dict] = None, pos: Optional[int] = None,
                     kv_source: Optional[torch.Tensor] = None,
-                    cross_cache_only: bool = False
+                    cross_cache_only: bool = False, rules=None, mesh=None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (b, s, d). Modes:
       train:    cache=None                          -> (out, None)
@@ -116,7 +116,9 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
       cross:    kv_source = encoder states (keys and values projected from
                 them, no mask); cross_cache_only reads the precomputed
                 cross K/V in ``cache`` without reprojecting (decode)
-    ``pos`` is a host int; the cache is updated in place.
+    ``pos`` is a host int; the cache is updated in place.  On a mesh
+    (``rules`` and ``mesh``, DTensor inputs) q is constrained to its
+    batch and head shards, and the kernel runs on each rank's own.
     """
     b, s, d = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -141,7 +143,8 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     q = q.transpose(1, 2)                             # (b, nh, s, hd)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    q = common.logical(q, ("batch", "act_heads", "act_seq", None))
+    q = common.logical(q, ("batch", "act_heads", "act_seq", None), rules,
+                       mesh)
 
     kv_len = None
     q_off = 0
@@ -158,8 +161,11 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                 shift = (s - W) % W
                 kk = torch.roll(kk, shift, dims=2)
                 vv = torch.roll(vv, shift, dims=2)
-            cache["k"][:, :, :kk.shape[2]] = kk
-            cache["v"][:, :, :vv.shape[2]] = vv
+            n = kk.shape[2]
+            common.write_(cache["k"], (slice(None), slice(None),
+                                       slice(0, n)), kk)
+            common.write_(cache["v"], (slice(None), slice(None),
+                                       slice(0, n)), vv)
             # attention over just the fresh kv (standard causal prefill)
         else:                                          # decode: write at pos
             # Ring-buffer write: local-attention layers keep only a
@@ -169,8 +175,9 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
             # (W == max_len) reduce to the ordinary absolute write.  The
             # start is clamped as dynamic_update_slice clamps it.
             wpos = min(pos % W, W - s)
-            cache["k"][:, :, wpos:wpos + s] = k
-            cache["v"][:, :, wpos:wpos + s] = v
+            at = (slice(None), slice(None), slice(wpos, wpos + s))
+            common.write_(cache["k"], at, k)
+            common.write_(cache["v"], at, v)
             k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
             kv_len = min(pos + 1, W)
             q_off = pos
@@ -191,9 +198,10 @@ def ffn_defs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict:
             "wo": ParamDef((f, d), ("mlp", "fsdp"))}
 
 
-def ffn_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def ffn_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, rules=None,
+              mesh=None) -> torch.Tensor:
     h = x @ p["wi"].to(x.dtype)
-    h = common.logical(h, ("batch", "act_seq", "mlp"))
+    h = common.logical(h, ("batch", "act_seq", "mlp"), rules, mesh)
     if cfg.ffn_kind == "swiglu":
         u, g = torch.chunk(h, 2, dim=-1)
         h = common.activation("swiglu", g) * u
@@ -258,15 +266,17 @@ def _store(cache: Dict, state: Dict) -> Dict:
     rows before it zero."""
     for key, val in state.items():
         dst = cache[key]
+        at = (slice(None),)
         if dst.shape != val.shape:
             dst.zero_()
-            dst = dst[:, dst.shape[1] - val.shape[1]:]
-        dst.copy_(val)
+            at = (slice(None), slice(dst.shape[1] - val.shape[1], None))
+        common.write_(dst, at, val)
     return cache
 
 
 def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
-                attn_kind: str, *, cache=None, pos: Optional[int] = None
+                attn_kind: str, *, cache=None, pos: Optional[int] = None,
+                rules=None, mesh=None
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (x_out, new_cache, aux_loss).  Modes: train (no cache),
     prefill (cache given, no pos), decode (pos given); the cache is
@@ -276,15 +286,17 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     if kind == "attn":
         window = cfg.local_window if attn_kind == "local" else None
         a, new_cache = attention_apply(p["attn"], h, cfg, causal=True,
-                                       window=window, cache=cache, pos=pos)
+                                       window=window, cache=cache, pos=pos,
+                                       rules=rules, mesh=mesh)
         x = x + a
         h = common.norm(cfg.norm_kind, x, p["ln2"])
         if cfg.is_moe:
-            f, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+            f, aux = moe_lib.moe_apply(p["moe"], h, cfg, rules, mesh)
         else:
-            f = ffn_apply(p["ffn"], h, cfg)
+            f = ffn_apply(p["ffn"], h, cfg, rules, mesh)
         x = x + f
-        x = common.logical(x, ("batch", "act_seq", "act_embed"))
+        x = common.logical(x, ("batch", "act_seq", "act_embed"), rules,
+                           mesh)
         return x, new_cache, aux
     if kind == "rglru":
         if cache is None:                                  # train
@@ -298,7 +310,7 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
             _store(cache, state)
         x = x + r
         h = common.norm(cfg.norm_kind, x, p["ln2"])
-        return x + ffn_apply(p["ffn"], h, cfg), cache, aux
+        return x + ffn_apply(p["ffn"], h, cfg, rules, mesh), cache, aux
     if kind == "mlstm":
         if pos is None:
             r = xlstm_lib.mlstm_apply(p["mlstm"], h, cfg)
@@ -351,8 +363,8 @@ def _adtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _embed(params, cfg, tokens, embeds=None):
-    x = params["embed"][tokens.long()].to(_adtype(cfg))
+def _embed(params, cfg, tokens, embeds=None, rules=None, mesh=None):
+    x = common.lookup(params["embed"], tokens).to(_adtype(cfg))
     if cfg.family in ("dense", "moe", "hybrid"):
         # the constant rounded to the activation dtype first, as
         # jnp.asarray(sqrt(d), x.dtype) is (on the host: no device sync)
@@ -360,11 +372,12 @@ def _embed(params, cfg, tokens, embeds=None):
     if embeds is not None:                    # vlm/audio stub front-end
         n = embeds.shape[1]
         x = torch.cat([embeds.to(x.dtype), x[:, n:]], dim=1)
-    return common.logical(x, ("batch", "act_seq", "act_embed"))
+    return common.logical(x, ("batch", "act_seq", "act_embed"), rules, mesh)
 
 
 def _head(params, cfg, x):
-    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    w = common.gather_dp(params["embed"].t() if cfg.tie_embeddings
+                         else params["head"])
     logits = x @ w.to(x.dtype)
     logits = common.softcap(logits.float(), cfg.logits_softcap)
     return common.mask_padded_vocab(logits, cfg.vocab_size)
@@ -376,13 +389,14 @@ def _units(params, caches, cfg):
     block cache or None, block kind, attn kind)."""
     pat, n_groups, rem = group_layout(cfg)
     for g in range(n_groups):
-        gp = common.tree_index(params["groups"], g)
+        gp = common.layer_params(params["groups"], g)
         gc = common.tree_index(caches["groups"], g) if caches else None
         yield True, [(gp[f"b{j}"], gc[f"b{j}"] if gc else None, bk, ak)
                      for j, (bk, ak) in enumerate(pat)]
     for j in range(rem):
         c = caches["rem"][f"b{j}"] if caches else None
-        yield False, [(params["rem"][f"b{j}"], c, *pat[j])]
+        yield False, [(common.gather_dp(params["rem"][f"b{j}"]), c,
+                       *pat[j])]
 
 
 def _layers(params, caches, cfg):
@@ -423,20 +437,21 @@ def _rematted(fn: Callable, remat) -> Callable:
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             embeds: Optional[torch.Tensor] = None,
-            caches: Optional[Dict] = None, remat=False
+            caches: Optional[Dict] = None, remat=False, rules=None, mesh=None
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Train (caches=None) / prefill (caches=init, filled in place).
     Returns (logits, caches, aux).  ``remat`` (False, True or ``"dots"``,
     the reference's) checkpoints each stacked pattern group, as the
     reference checkpoints its scanned group body; the remainder layers are
     not checkpointed, as there."""
-    x = _embed(params, cfg, tokens, embeds)
+    x = _embed(params, cfg, tokens, embeds, rules, mesh)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run(x, layers):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for bp, bc, bk, ak in layers:
-            x, _, a = block_apply(bp, x, cfg, bk, ak, cache=bc)
+            x, _, a = block_apply(bp, x, cfg, bk, ak, cache=bc, rules=rules,
+                                  mesh=mesh)
             aux = aux + a
         return x, aux
 
@@ -446,7 +461,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
         aux_total = aux_total + a
     x = common.norm(cfg.norm_kind, x, params["final_norm"])
     logits = common.logical(_head(params, cfg, x),
-                            ("batch", "act_seq", "vocab"))
+                            ("batch", "act_seq", "vocab"), rules, mesh)
     return logits, caches, aux_total
 
 
@@ -469,23 +484,26 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_step(params: Dict, caches: Dict, tokens: torch.Tensor, pos: int,
-                cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+                cfg: ArchConfig, rules=None, mesh=None
+                ) -> Tuple[torch.Tensor, Dict]:
     """One-token step. tokens: (b, 1) int; pos: host int (current cache
     length).  Returns (logits (b, 1, vocab), caches updated in place)."""
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, None, rules, mesh)
     for bp, bc, bk, ak in _layers(params, caches, cfg):
-        x, _, _ = block_apply(bp, x, cfg, bk, ak, cache=bc, pos=int(pos))
+        x, _, _ = block_apply(bp, x, cfg, bk, ak, cache=bc, pos=int(pos),
+                              rules=rules, mesh=mesh)
     x = common.norm(cfg.norm_kind, x, params["final_norm"])
     return _head(params, cfg, x), caches
 
 
-def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, remat=False
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, remat=False,
+            rules=None, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token cross-entropy (+ 0.01 aux) and its parts, as the
     reference's; differentiable on the card through the kernels' autograd
     Functions (``remat`` as in `forward`)."""
     logits, _, aux = forward(params, batch["tokens"], cfg,
-                             embeds=batch.get("embeds"), remat=remat)
+                             embeds=batch.get("embeds"), remat=remat,
+                             rules=rules, mesh=mesh)
     ce = common.cross_entropy(logits, batch["labels"])
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}

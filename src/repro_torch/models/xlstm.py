@@ -33,7 +33,17 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models import common
 from repro_torch.models.common import ParamDef
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a mesh its composite min(x, 0) - log1p(
+    exp(-|x|)), equal within float32 rounding (DTensor has no rule for
+    log-sigmoid's backward)."""
+    if common.is_dtensor(x):
+        return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-torch.abs(x)))
+    return F.logsigmoid(x)
 
 
 def _heads(cfg: ArchConfig) -> Tuple[int, int]:
@@ -99,7 +109,7 @@ def _mlstm_gates(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor,
     """log i and log f, fp32 (b, nh, s)."""
     x32 = x.float()
     log_i = (x32 @ p["wi"].float()).transpose(1, 2)
-    log_f = F.logsigmoid((x32 @ p["wf"].float()).transpose(1, 2)
+    log_f = _logsigmoid((x32 @ p["wf"].float()).transpose(1, 2)
                          + p["bf"].float()[None, :, None])
     return log_i, log_f
 
@@ -157,7 +167,7 @@ def mlstm_decode(p: Dict, x: torch.Tensor, state: Dict,
     q = q.float()
     x32 = x[:, 0].float()
     log_i = x32 @ p["wi"].float()                          # (b, nh)
-    log_f = F.logsigmoid(x32 @ p["wf"].float() + p["bf"].float())
+    log_f = _logsigmoid(x32 @ p["wf"].float() + p["bf"].float())
     m_new = torch.maximum(state["m"] + log_f, log_i)
     fg = torch.exp(state["m"] + log_f - m_new)[..., None]
     ig = torch.exp(log_i - m_new)[..., None]
@@ -195,7 +205,7 @@ def _slstm_step(r: torch.Tensor, carry, zifo):
     z = torch.tanh(z_x + rec[..., :hd])
     i_t = i_x + rec[..., hd:2 * hd]
     f_t = f_x + rec[..., 2 * hd:]
-    log_f = F.logsigmoid(f_t)
+    log_f = _logsigmoid(f_t)
     m_new = torch.maximum(log_f + m, i_t)                  # stabilizer
     i_g = torch.exp(i_t - m_new)
     f_g = torch.exp(log_f + m - m_new)
@@ -220,9 +230,11 @@ def slstm_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                               device=x.device) for _ in range(3)) \
         + (torch.full((b, nh, hd), NEG_INF, dtype=torch.float32,
                       device=x.device),)
-    hs = torch.empty((b, s, nh, hd), dtype=torch.float32, device=x.device)
+    hs = []
     for t in range(s):
-        carry, hs[:, t] = _slstm_step(r, carry, [g[:, t] for g in gates])
+        carry, h = _slstm_step(r, carry, [g[:, t] for g in gates])
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)                            # (b, s, nh, hd)
     y = _up_down(p, hs.reshape(b, s, nh * hd).to(x.dtype))
     if not return_state:
         return y

@@ -6,9 +6,15 @@ bias-corrected float32 moments, decoupled weight decay, the parameter
 updated in float32 and cast back to its dtype.  ``step`` is an int32
 tensor on the parameters' device, so the schedule and the bias correction
 are computed there and the loop never synchronises on them.  `apply`
-updates the parameters and moments in place (see there).  The
-reference's ZeRO-1 sharding of the moments comes with sharding (ROADMAP
-queue 1 item 9); on one card the moments sit beside the parameters.
+updates the parameters and moments in place (see there).
+
+ZeRO-1: on a mesh the parameters are DTensors and the moments take their
+placements (`init`), as the reference's optimizer state inherits the
+parameters' specs: ``fsdp`` -> ``data`` shards them over the data axis,
+so each rank holds its shard of both moments.  The gradients come pinned
+to the same placements (`repro_torch.launch.train`), the update is
+elementwise on each rank's shards, and the global norm for clipping sums
+every shard across the mesh.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.parallel import replicating
+from repro_torch.tree import is_dtensor, tree_leaves, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -54,18 +61,22 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: Any) -> AdamWState:
-    """Zero float32 moments shaped as the parameters, step 0."""
+    """Zero float32 moments shaped and placed as the parameters (each
+    rank's shard on a mesh), step 0."""
     some = tree_leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=some.device),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
 def global_norm(tree: Any) -> torch.Tensor:
+    """The norm of all leaves together (on a mesh, of every shard: a
+    replicated scalar)."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in tree_leaves(tree)))
+
+
 
 
 @torch.no_grad()
@@ -78,6 +89,12 @@ def apply(cfg: AdamWConfig, state: AdamWState, params: Any, grads: Any
     come back (one leaf's temporaries at a time, so a step never holds two
     copies of the optimizer state); ``grads`` and ``state.step`` are left
     as they were."""
+    # on a mesh the schedule's plain scalars act as replicated tensors
+    with replicating(is_dtensor(tree_leaves(params)[0])):
+        return _apply(cfg, state, params, grads)
+
+
+def _apply(cfg, state, params, grads):
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

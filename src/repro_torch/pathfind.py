@@ -42,7 +42,7 @@ and a missing card is an error, never a silent fall-back to the host):
           machinery is not ported yet exit 2 naming their ROADMAP queue 1
           item: --workers on the pipeline backend (the sweep fabric),
           --lease-ttl, --compile-ahead, --no-bucketing and
-          --no-compile-cache (item 11), --backend device (item 9).
+          --no-compile-cache (item 11), --backend device (item 9 (b)).
 
   size    inverse fleet sizing over a swept serving-traffic design space:
           the minimum device count serving --qps under percentile SLO

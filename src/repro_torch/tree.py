@@ -33,3 +33,9 @@ def tree_unflatten(like: Any, leaves: Iterable[Any]) -> Any:
         return next(it)
 
     return fill(like)
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (a leaf on the mesh path), without
+    importing DTensor for plain tensors."""
+    return type(x).__name__ == "DTensor"

@@ -170,8 +170,19 @@ def test_unported_kinds_raise():
                                   model_phases=("train_step",), reps=1)
     points = microbench.enumerate_points(spec)
     assert [p.kind for p in points] == ["collective", "train_step"]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    # a collective point needs a process group of its devices: measured
+    # alone in one process it names them; through run_points, outside any
+    # group, it is measured in 2 spawned gloo processes (in a group of its
+    # size: tests/test_torch_parallel_runtime.py)
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         microbench.measure_point(points[0], spec, device=CPU)
+    recs = []
+    assert microbench.run_points(points[:1], spec, recs.append,
+                                 device=CPU) == 1
+    assert recs[0]["kind"] == "collective" and recs[0]["bytes"] == 1 << 10
+    assert recs[0]["devices"] == 2 and recs[0]["t_mean_s"] >= \
+        recs[0]["t_s"] > 0
+    assert not torch.distributed.is_initialized()
     rec = microbench.measure_point(points[1], spec, device=CPU)
     assert rec["key"] == points[1].key() and rec["kind"] == "train_step"
     assert rec["t_s"] > 0 and rec["t_mean_s"] >= rec["t_s"]

@@ -713,6 +713,34 @@ def test_card_training_matches_the_golden_training_file(arch):
     CS.hold_to_train_golden(got, golden, arch)
 
 
+@pytest.mark.cuda
+def test_card_mesh_path_matches_the_golden_training_file():
+    """The mesh path on the card: a process group at world size 1 (NCCL),
+    a 1x1 ``DeviceMesh``, and five AdamW steps of the reduced
+    qwen1.5-0.5b in float32 with DTensor parameters, moments and batches
+    (the attention kernel on each rank's shards), against the reference's
+    losses and gradient norms in tests/test_torch_golden_train.npz
+    (``chip_smoke.TRAIN_GOLDEN_TOLS``)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    dev = _card()
+    arch = "qwen1.5-0.5b"
+    with np.load(CS.GOLDEN_TRAIN) as f:
+        golden = dict(f)
+    mesh_lib.init_distributed(dev)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = mesh_lib.make_mesh((1, 1), device=dev)
+        before = port_fa.LAUNCHES
+        got = CS.train_golden_port(arch, dev, batches=tuple(
+            golden[f"{arch}/{key}"] for key in ("tokens", "labels")),
+            mesh=mesh)
+        assert port_fa.LAUNCHES > before
+    finally:
+        dist.destroy_process_group()
+    CS.hold_to_train_golden(got, golden, arch)
+
+
 GOLDEN = Path(__file__).with_name("test_torch_golden.npz")
 GOLDEN_ARCHS = ("qwen1.5-0.5b", "recurrentgemma-2b")
 GOLDEN_BATCH, GOLDEN_PROMPT, GOLDEN_STEPS = 2, 40, 8

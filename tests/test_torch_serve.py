@@ -98,7 +98,10 @@ def test_serve_round_trip_on_the_host():
 
 
 def test_serve_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # in one process a mesh names the world size it needs (serving on a
+    # mesh: tests/test_torch_parallel_runtime.py)
+    with pytest.raises(ValueError, match=r"mesh \(2, 2\) has 4 devices but "
+                                         r"the world size is 1"):
         port_serve.serve("qwen1.5-0.5b", mesh_shape=(2, 2), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -258,6 +258,13 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     assert "phase 8 (b): qwen2-moe-a2.7b-smoke" in out
     assert "drop 0 assignments" in out and "vs every expert densely" in out
     assert "phase 8 (c): whisper-large-v3-smoke" in out
+    assert "== phase 9: parallelism; process group gloo, rank 0 of 1" in out
+    assert "3 steps on a 1x1 DeviceMesh ('data', 'model')" in out
+    assert "against phase 7 (b)'s" in out and "mesh / unsharded" in out
+    assert "-- (b) bucketed_all_reduce of a bf16 / f32 tree" in out
+    assert out.count("-- (c) collective ") == 2
+    assert "-- (d) the host has 0 card(s): no 2-rank mesh" in out
+    assert not torch.distributed.is_initialized()
     assert "4 decode steps from the prefill vs a forward" in out
     assert out.count("Model.prefill") == 4
     assert [r["name"] for r in rows] == ["gemm", "flash_attention",
@@ -304,9 +311,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_card.py"]
     assert len(files) > 20
     assert REPO / "src" / "repro_torch" / "core" / "sweeppipeline.py" in files
+    assert REPO / "src" / "repro_torch" / "launch" / "mesh.py" in files
     walked = {f.parent.name for f in files}
     assert {"core", "kernels", "calibrate", "models", "launch", "optim",
-            "data", "runtime", "checkpoint"} <= walked
+            "data", "runtime", "checkpoint", "parallel"} <= walked
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -62,7 +62,10 @@ def test_cli_trains_on_the_host_and_refuses_a_mesh(tmp_path, capsys):
     assert "[train] step     0 loss" in out
     assert "[train] done: final loss" in out and "(3 steps" in out
     assert (tmp_path / "step_000000003" / "meta.json").is_file()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    # a mesh needs one process per device: in one process it names the
+    # world size it needs (the mesh runs are tests/test_torch_parallel*.py)
+    with pytest.raises(ValueError, match=r"mesh \(2, 2\) has 4 devices but "
+                                         r"the world size is 1"):
         train(TrainConfig(**dict(BASE, mesh_shape=(2, 2), steps=1)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
