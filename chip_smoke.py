@@ -92,8 +92,7 @@ at full width), and parallelism (the mesh path over a ``DeviceMesh``):
                ``pareto_records`` over the full directory) and one stopped
                and resumed from ``frontier_state.npz``, ``--backend
                thread`` and ``process`` on the train scenario of the
-               golden archs, and one profiled pipeline superbatch of two
-               chunks (idle share, launches); fleet
+               golden archs; fleet
                sizing over the card's directory printing the host's
                text; points/s of every sweep and backend on both; (e)
                DeepFlow's search: ``pathfind soe`` for qwen1.5-0.5b x
@@ -107,7 +106,22 @@ at full width), and parallelism (the mesh path over a ``DeviceMesh``):
                calibrated serving-traffic directories on card and host
                (the same counts, records within 1e-4), each command's
                wall seconds and eq.-6 steps/s, and one profiled step of
-               each engine;
+               each engine; (f) the bucketed search (the sweeps above
+               run unbucketed, the default): (d)'s scenarios with
+               ``--bucketing`` on the serial backend and the pipeline,
+               each from an empty store and design registry, their
+               points/s and compile and stall seconds beside (d)'s
+               unbucketed ones, the serial records held to (d)'s
+               unbucketed serial ones (1e-5) and the golden ones, the
+               pipeline's the serial's bit for bit, the bucket and
+               compile counters, one vmapped call and one profiled
+               superbatch bucketed and not (launches, host-to-device
+               copies, idle share), ``pathfind sweep`` with
+               ``--bucketing --compile-ahead 2 --no-compile-cache``,
+               ``--no-bucketing`` and ``--backend device``, and a matrix
+               call over every card (a 2-card split against one card
+               where the host has two); every ``pathfind`` call of
+               phase 4 starts from empty caches, as a new process does;
   5. serve     full-width qwen1.5-0.5b (24 layers, random weights from a
                seed): ``serve(batch=8, prompt_len=128, gen=32)``, then a
                2048-token prompt forwarded 2047 tokens into a cache and
@@ -132,10 +146,10 @@ at full width), and parallelism (the mesh path over a ``DeviceMesh``):
                npz`` (FAMILY_GOLDEN); (b) full-width qwen2-moe-a2.7b:
                ``serve``, ``Model.prefill`` of (2, 2048), the 2047 + 1
                check at capacity 8.0 (no drops), its first MoE layer
-               against a dense computation, a profiled decode window; (c)
-               full-width whisper-large-v3: ``Model.prefill`` of (2, 1500)
-               frame embeddings, 16 decode steps from it against a
-               forward, a profiled decode window, ``serve``, and 3 steps
+               against a dense computation; (c) full-width
+               whisper-large-v3: ``Model.prefill`` of (2, 1500) frame
+               embeddings, 16 decode steps from it against a forward,
+               ``serve``, and 3 steps
                of ``launch.train.train`` at 1500 frames and 448 tokens,
                one more timed and one profiled.  Phase 2 holds the
                attention kernel to its plain version at every shape
@@ -321,6 +335,12 @@ MLSTM_TOLS = {"float32": 3e-3, "bfloat16": 3e-2}   # rtol = atol
 SEARCH = dict(arches=None, meshes=((8, 8), (16, 16)), logic=None, hbm=None,
               net=None, matrix_rows=16384, eager_rows=8)
 SEARCH_RTOL = 1e-4      # the card's rows against the host's and the golden
+# phase 4 (f): bucketed records against unbucketed ones; the rows of a
+# matrix split over several devices against one device's
+BUCKET_RTOL = 1e-5
+SPLIT_RTOL = 1e-6
+# phase 4 (f)'s matrix call over every card, (c)'s skeleton
+SPLIT_ROWS = 4096
 GOLDEN_SWEEP = ROOT / "tests" / "test_torch_golden_sweep.npz"
 # phase 4 (d), the chunked runner: one set of axes for every scenario (every
 # registered arch, 2 meshes, 2 logic nodes, 2 HBM generations, the composed
@@ -496,23 +516,21 @@ NEAR_TIE = 1 / 16
 # seed 0.  qwen2-moe-a2.7b (56 GB of f32 weights; serve builds its own,
 # so it runs first and frees them): serve, one prefill, the 2047 + 1
 # against 2048 check at capacity ``check_capacity`` (nothing dropped),
-# the first MoE layer against a dense computation, a profiled decode
-# window.  whisper-large-v3: the prefill of ``frames`` frame embeddings,
-# ``steps`` decode steps from it against a forward, a profiled decode
-# window, serve (its prompt stepped against init_cache's zero cross cache,
-# as the reference's serve does), and ``train_steps`` steps of
-# ``launch.train.train`` at ``train`` (batch, frames) with decoder_len
+# the first MoE layer against a dense computation.  whisper-large-v3: the
+# prefill of ``frames`` frame embeddings, ``steps`` decode steps from it
+# against a forward, serve (its prompt stepped against init_cache's zero
+# cross cache, as the reference's serve does), and ``train_steps`` steps
+# of ``launch.train.train`` at ``train`` (batch, frames) with decoder_len
 # tokens, one more timed and one profiled.  Their profiled decode windows
-# are ``profile`` (prompt, generated) tokens: 2 + 4, where phases 5 and 6
-# take 4 + 8 (the profiler's own cost grows with MoE's 3,600 launches a
-# step).
+# (last read: qwen2-moe idle 0.674-0.766 at ~3,570 launches a step,
+# whisper 0.908-0.938; PERF.md) were cut for phase 4 (f)'s time; phases 5
+# and 6 keep theirs.
 FAMILIES = dict(
     moe=dict(arch="qwen2-moe-a2.7b", prefill=(2, 2048), check_len=2048,
              check_capacity=8.0),
     whisper=dict(arch="whisper-large-v3", frames=(2, 1500), steps=16,
                  train=(2, 1500), train_steps=3, lr=1e-4, warmup=1),
-    serve=dict(batch=8, prompt_len=128, gen=32), use_reduced=False,
-    profile=(2, 4))     # the profiled decode window: prompt, generated
+    serve=dict(batch=8, prompt_len=128, gen=32), use_reduced=False)
 
 
 def _port():
@@ -1289,14 +1307,19 @@ _SWEEP_LINE = re.compile(r"# sweep\[[^\]]+\](?: frontier-only)? backend=\w+: "
 def _cli(argv, ok=(0,)):
     """``pathfind.main(argv)`` with its output captured: (exit code,
     stdout, stderr, seconds); an exit code not in ``ok`` fails the phase.
-    Each call starts from an empty prediction cache, as a new process
-    would (the serving and serving-traffic scenarios score the same
-    points), so that each sweep's rate is its own."""
+    Each call starts as a new process would: from an empty prediction
+    cache (the serving and serving-traffic scenarios score the same
+    points), compiled store, design registry and hardware-row caches, so
+    that each sweep's rate and compile seconds are its own."""
     import contextlib
     import io
     from repro_torch import pathfind
-    from repro_torch.core import pathfinder
+    from repro_torch.core import pathfinder, sweeppipeline, sweeprunner
     pathfinder.clear_prediction_cache()
+    pathfinder.clear_compiled_caches()
+    sweeprunner._HW_CACHE.clear()
+    with sweeppipeline._ROW_LOCK:
+        sweeppipeline._ROW_CACHE.clear()
     out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -1319,11 +1342,12 @@ def _jsonl(path: Path) -> list:
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
-def _held_records(got: list, want: list, what: str) -> int:
+def _held_records(got: list, want: list, what: str,
+                  rtol: float = SEARCH_RTOL) -> int:
     """``got`` records equal to ``want`` key by key: labels, flags and the
-    non-finite (None) pattern exactly, numbers within SEARCH_RTOL; the
-    numbers of a nested dict (a refined record's knobs and budget
-    fractions) within SEARCH_RTOL plus 1e-5, the unit of the budgets'
+    non-finite (None) pattern exactly, numbers within ``rtol``
+    (SEARCH_RTOL); the numbers of a nested dict (a refined record's knobs
+    and budget fractions) within that plus 1e-5, the unit of the budgets'
     5-decimal rounding.  Returns the numbers compared."""
     def held(g, v, key, atol=0.0):
         if isinstance(v, dict):
@@ -1331,7 +1355,7 @@ def _held_records(got: list, want: list, what: str) -> int:
             return sum(held(g[k], x, (*key, k), 1e-5) for k, x in v.items())
         if isinstance(v, float):
             assert isinstance(g, float) and \
-                abs(g - v) <= SEARCH_RTOL * abs(v) + atol, (what, key, g, v)
+                abs(g - v) <= rtol * abs(v) + atol, (what, key, g, v)
             return 1
         assert g == v, (what, key, g, v)
         return 0
@@ -1358,10 +1382,10 @@ def _printed_close(got: str, want: str) -> bool:
 
 
 def phase_runner(device, runner: dict, workdir: Path,
-                 profile_path: str) -> None:
+                 profile_path: str) -> dict:
     """Phase 4 (d): ``pathfind sweep --out DIR [--resume]`` and ``pathfind
     size --from DIR`` on the card and on the host (see the module
-    docstring)."""
+    docstring); returns the points/s of every sweep, per place."""
     import torch
     from repro_torch.core import pathfinder, sweeprunner
     card = card_line() if device.type == "cuda" else "host rehearsal"
@@ -1459,6 +1483,7 @@ def phase_runner(device, runner: dict, workdir: Path,
           f"{rc}, {max(len(text.splitlines()) - 1, 0)} fleet plans; the "
           f"card's directory prints the host's text"
           + ("" if exact else " within the last printed digit"))
+    return rates
 
 
 def _by_chunk(path: Path) -> list:
@@ -1479,10 +1504,11 @@ def phase_backends(device, runner: dict, workdir: Path,
     pipeline; (iii) ``--frontier-only`` of every scenario against the
     pipeline directory's ``pareto_records``, and one stopped and resumed
     from ``frontier_state.npz``; (iv) the thread and process pools on the
-    train scenario over the golden archs; (v) one profiled superbatch.  ``rates`` holds (2)'s
-    pipeline points/s per place and scenario; this phase adds the rest."""
+    train scenario over the golden archs (phase 4 (f) profiles one
+    superbatch, bucketed and not).  ``rates`` holds (2)'s pipeline points/s
+    per place and scenario; this phase adds the rest."""
     import torch
-    from repro_torch.core import sweeppipeline, sweeprunner
+    from repro_torch.core import sweeprunner
     card = card_line() if device.type == "cuda" else "host rehearsal"
     where = {"card": str(device), "host": "cpu"}
     print("-- (d) the executors: --backend serial|thread|process, "
@@ -1593,29 +1619,268 @@ def phase_backends(device, runner: dict, workdir: Path,
               f"{dt:.3f}s = {counts[0] / dt:.1f} points/s; every chunk "
               f"once, the pipeline's records  [{card}]")
 
-    # (v) one superbatch of two chunks on the card, profiled: its idle
-    # share and launches (a whole-sweep superbatch is ~135,000 launches,
-    # too many events for the profiler's time here)
-    if device.type == "cuda":
-        spec, _ = sweeprunner.load_sweep(str(workdir / "train-card"))
-        ex = sweeppipeline.PipelineExecutor(
-            spec, cache=None, superbatch=2 * spec.chunk_size, device=device)
-        chunks = sweeprunner.make_chunks(sweeprunner.enumerate_labels(spec),
-                                         spec.chunk_size)
-        pack = ex.pack(ex._pack_slices(chunks)[0])
-        n = sum(len(c.labels) for c in pack.chunks)
-
-        def superbatch():
-            ex.dispatch(pack)
-            return ex.finalize(pack)
-        superbatch()
-        _device_profile(superbatch, 1, f"pipeline superbatch of {n} designs "
-                        f"in {len(pack.groups)} groups")
     print(f"# phase 4 (d), the executors: {time.perf_counter() - t0:.2f}s")
     for k in where:
         print(f"  points/s on {k}: " + ", ".join(
             f"{name} {rate:.1f}" for name, rate in rates[k].items())
             + (f"  [{card}]" if k == "card" else ""))
+
+
+def _compile_line(err: str) -> str:
+    """The ``# compile: ...`` summary line of a sweep's standard error."""
+    m = re.search(r"# compile: ([\d.]+)s tracing designs into their "
+                  r"buckets, ([\d.]+)s stalling", err)
+    assert m, err
+    return f"compile {m.group(1)} s, stall {m.group(2)} s"
+
+
+def _launch_profile(fn, what: str) -> dict:
+    """``fn()`` once under torch.profiler: prints and returns its device
+    launches, host-to-device copies, device-busy ms and idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if "CUDA" in str(getattr(e, "device_type", ""))]
+    busy = sum(e.self_device_time_total for e in dev) * 1e-6
+    out = dict(launches=sum(e.count for e in dev),
+               h2d=sum(e.count for e in dev if "HtoD" in e.key),
+               busy_ms=busy * 1e3, wall_ms=wall * 1e3,
+               idle=1 - busy / wall if busy else None)
+    print(f"  profiled {what}: wall {out['wall_ms']:.3f} ms (profiler on), "
+          f"device busy {out['busy_ms']:.3f} ms, idle share "
+          + (f"{out['idle']:.3f}" if busy else "not measured")
+          + f", {out['launches']} launches, {out['h2d']} host-to-device "
+          f"copies")
+    return out
+
+
+def _skeleton_rows(device, n: int):
+    """(c)'s skeleton (qwen1.5-0.5b x train_4k x 16x16, its first
+    strategy) as an evaluator on ``device``, the template, and ``n``
+    seeded rows around it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import SHAPE_CELLS, get_config
+    from repro_torch.core import age, lmgraph, pathfinder, planner, techlib
+    from repro_torch.core.placement import mesh_system
+    from repro_torch.core.roofline import PPEConfig
+    cfg, cell = get_config("qwen1.5-0.5b"), SHAPE_CELLS["train_4k"]
+    ev = pathfinder.BatchedEvaluator(
+        lmgraph.build_graph(cfg, cell),
+        planner.candidate_strategies(cfg, cell, (16, 16))[0],
+        system=mesh_system((16, 16)), ppe=PPEConfig(n_tilings=8),
+        cache=None, device=device)
+    template = age.generate(techlib.make_tech_config("N7", "HBM2E"),
+                            age.Budgets.default(), device=device)
+    base = pathfinder.pack_hw(template)
+    rows = base[None, :] * (0.8 + 0.4 * torch.rand(
+        (n, base.shape[0]), generator=torch.Generator().manual_seed(1))
+        .numpy())
+    return ev, template, rows.astype(np.float32)
+
+
+def phase_bucketed(device, runner: dict, workdir: Path,
+                   rates: dict) -> None:
+    """Phase 4 (f): the bucketed search on ``device`` (see the module
+    docstring), over (d)'s directories in ``workdir``; ``rates`` are (d)'s
+    unbucketed points/s, per place."""
+    from repro_torch.core import compileahead, sweeppipeline, sweeprunner
+    card = card_line() if device.type == "cuda" else "host rehearsal"
+    dev = str(device)
+    t0 = time.perf_counter()
+    print("-- (f) the bucketed search: serial and pipeline with "
+          "--bucketing from empty caches, the backends bit for bit, "
+          "compile-ahead, --backend device, devices")
+    golden = {}
+    for rec in _jsonl(GOLDEN_RUNNER):
+        golden.setdefault(rec.pop("scenario"), []).append(rec)
+
+    # (i) every scenario with --bucketing on the serial backend and on the
+    # pipeline, each from empty caches (as a new process): the serial
+    # records against (d)'s unbucketed serial ones and the golden ones,
+    # the pipeline's against the serial's bit for bit; the rates beside
+    # (d)'s unbucketed ones, also from empty caches
+    for scenario in runner["scenarios"]:
+        got, parts = {}, []
+        for backend, base in (("serial", f"{scenario} serial"),
+                              ("pipeline", scenario)):
+            d = workdir / f"{scenario}-card-bucketed-{backend}"
+            _, _, err, dt = _cli(runner_argv(scenario, runner) + [
+                "--out", d, "--device", dev, "--backend", backend,
+                "--bucketing"])
+            got[backend] = _by_chunk(d / "results.jsonl")
+            stats = compileahead.bucket_stats()
+            parts.append(
+                f"{backend} {len(got[backend]) / dt:.1f} points/s in "
+                f"{dt:.3f}s ({_compile_line(err)}, "
+                f"{stats['designs_traced']} designs traced into "
+                f"{stats['buckets']} buckets; unbucketed "
+                f"{rates['card'][base]:.1f} points/s)")
+        off = _by_chunk(workdir / f"{scenario}-card-serial"
+                        / "results.jsonl")
+        n = _held_records(got["serial"], off, f"{scenario}: bucketed "
+                          f"against not", rtol=BUCKET_RTOL)
+        by_key = {r["key"]: r for r in got["serial"]}
+        _held_records([by_key[r["key"]] for r in golden[scenario]],
+                      golden[scenario], f"{scenario}: bucketed against the "
+                      f"reference's golden")
+        assert got["pipeline"] == got["serial"], \
+            f"{scenario}: bucketed pipeline and serial differ in bits"
+        print(f"  {scenario} --bucketing on {device.type}, from empty "
+              f"caches: {'; '.join(parts)}; {n} numbers of the serial "
+              f"records within {BUCKET_RTOL:g} of the unbucketed serial's, "
+              f"{len(golden[scenario])} golden records within "
+              f"{SEARCH_RTOL:g}; the bucketed pipeline's records are the "
+              f"bucketed serial's bit for bit  [{card}]")
+    t1 = time.perf_counter()
+    print(f"  # (i) {t1 - t0:.2f}s")
+
+    # (ii) one vmapped call of (c)'s skeleton over 84 rows (one design's
+    # techlib points), and one superbatch of two chunks, each bucketed and
+    # not, profiled
+    ev, template, rows = _skeleton_rows(device, 84)
+    for bucketing in (True, False):
+        fn = ev._compiled(template, bucketed=bucketing)
+        ev._rows(fn, rows)
+        if device.type == "cuda":
+            _launch_profile(lambda: ev._rows(fn, rows), "vmapped call of "
+                            "84 rows of (c)'s skeleton, " + (
+                                "bucketed" if bucketing else "unbucketed"))
+    spec, _ = sweeprunner.load_sweep(str(workdir / "train-card"))
+    chunks = sweeprunner.make_chunks(sweeprunner.enumerate_labels(spec),
+                                     spec.chunk_size)
+    for bucketing in (True, False):
+        ex = sweeppipeline.PipelineExecutor(
+            spec, cache=None, superbatch=2 * spec.chunk_size,
+            bucketing=bucketing, device=device)
+        pack = ex.pack(ex._pack_slices(chunks)[0])
+
+        def superbatch():
+            ex.dispatch(pack)
+            return ex.finalize(pack)
+        superbatch()
+        n = sum(len(c.labels) for c in pack.chunks)
+        what = f"pipeline superbatch of {n} designs, " + (
+            f"{len(ex._bucket_plan(pack))} buckets" if bucketing
+            else f"{len(pack.groups)} groups, unbucketed")
+        if device.type == "cuda":
+            _launch_profile(superbatch, what)
+        else:
+            superbatch()
+            print(f"  {what} on the host (no profile)")
+
+    t2 = time.perf_counter()
+    print(f"  # (ii) {t2 - t1:.2f}s")
+
+    # (iii) the execution flags through the CLI, on the train scenario of
+    # the golden archs: with --bucketing against (i)'s bucketed pipeline
+    # records of the same keys, bit for bit, the others against (d)'s
+    # unbucketed pipeline records
+    flagged = dict(runner, arches=runner["golden_arches"])
+    pipes = {bucketed: {r["key"]: r for r in _by_chunk(workdir / (
+        "train-card-bucketed-pipeline" if bucketed else "train-card")
+        / "results.jsonl")} for bucketed in (True, False)}
+    for flags in (("--bucketing", "--compile-ahead", "2",
+                   "--no-compile-cache"), ("--no-bucketing",),
+                  ("--backend", "device")):
+        bucketed = "--bucketing" in flags
+        d = workdir / ("train-flags" + "".join(flags).replace("--", "-"))
+        _, _, err, dt = _cli(runner_argv("train", flagged) + [
+            "--out", d, "--device", dev, *flags])
+        counts = _sweep_counts(err)
+        got = _by_chunk(d / "results.jsonl")
+        want = [pipes[bucketed][r["key"]] for r in got]
+        assert counts[3] == counts[1] and len(got) == counts[0]
+        if bucketed:
+            assert got == want, f"{' '.join(flags)}: not the pipeline's bits"
+        else:
+            _held_records(got, want, " ".join(flags), rtol=BUCKET_RTOL)
+        print(f"  train (golden archs) {' '.join(flags)} on {device.type}: "
+              f"{counts[0]} points in {dt:.3f}s ({_compile_line(err)}); the "
+              + ("bucketed pipeline's records bit for bit" if bucketed else
+                 "pipeline's records " + ("bit for bit" if got == want else
+                                          f"within {BUCKET_RTOL:g}"))
+              + f"  [{card}]")
+
+    t3 = time.perf_counter()
+    print(f"  # (iii) {t3 - t2:.2f}s")
+
+    # (iv) the rows split over devices
+    phase_devices(device)
+    print(f"# phase 4 (f): {time.perf_counter() - t0:.2f}s")
+
+
+def phase_devices(device) -> None:
+    """Phase 4 (f) (iv): a matrix call of (c)'s skeleton over every card
+    (the host: every host shard) against one device's rows; where the
+    host has two cards or more, a 2-card split of it and the pipeline's
+    megabatches split over every card (bucketed and not, the train
+    scenario of phase 4 (d)'s golden archs, every dispatch large enough
+    to split), each against one card.  Runs alone too (``python3 -c
+    'import chip_smoke as c, torch; c._port();
+    c.phase_devices(torch.device("cuda", 0))'``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pathfinder, sweeppipeline, sweeprunner
+    card = card_line() if device.type == "cuda" else "host rehearsal"
+    ev, template, rows = _skeleton_rows(device, SPLIT_ROWS)
+    one = ev.evaluate_matrix(template, rows, devices=1)
+    n_dev = pathfinder.local_device_count(device)
+    t0 = time.perf_counter()
+    every = ev.evaluate_matrix(template, rows, devices=n_dev, block=8)
+    dt = time.perf_counter() - t0
+    _held(every, one, "matrix over every device against one device")
+    print(f"  evaluate_matrix(devices={n_dev}, block=8) of {SPLIT_ROWS} "
+          f"rows on {device.type}: {dt:.4f}s, the one-device rows  [{card}]")
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n_cards < 2:
+        print(f"  the host has {n_cards} card(s): the 2-device split was "
+              f"not run")
+        return
+
+    def split_held(got, what):
+        bad = np.abs(got - one) > SPLIT_RTOL * np.abs(one)
+        assert not bad.any(), f"{what}: {int(bad.sum())} values off"
+        return "bit for bit" if np.array_equal(got, one) else \
+            f"within {SPLIT_RTOL:g}"
+
+    for n in sorted({2, n_cards}):
+        t0 = time.perf_counter()
+        got = ev.evaluate_matrix(template, rows, devices=n, block=8)
+        dt = time.perf_counter() - t0
+        print(f"  {n}-card split of {SPLIT_ROWS} rows in {dt:.4f}s: "
+              f"{split_held(got, f'{n}-card split')} the one-card rows  "
+              f"[{card}]")
+    spec = sweeprunner.SweepSpec(
+        arches=("qwen1.5-0.5b", "recurrentgemma-2b"),
+        mesh_shapes=((8, 8), (16, 16)), logic_nodes=("N7", "N5"),
+        hbms=("HBM2E", "HBM3"), chunk_size=8)
+    chunks = sweeprunner.make_chunks(sweeprunner.enumerate_labels(spec),
+                                     spec.chunk_size)
+    for bucketing in (True, False):
+        recs = {}
+        for n in (1, n_cards):
+            ex = sweeppipeline.PipelineExecutor(
+                spec, cache=None, devices=n, bucketing=bucketing,
+                shard_min_rows=1, device=device)
+            out = []
+            ex.run(chunks, lambda c, r: out.extend(r))
+            recs[n] = out
+        exact = recs[n_cards] == recs[1]
+        if not exact:
+            _held_records(recs[n_cards], recs[1],
+                          f"pipeline over {n_cards} cards", rtol=SPLIT_RTOL)
+        print(f"  the pipeline's {'bucketed' if bucketing else 'unbucketed'}"
+              f" dispatches split over {n_cards} cards: "
+              f"{len(recs[1])} records, "
+              + ("bit for bit" if exact else f"within {SPLIT_RTOL:g}")
+              + f" the one-card records  [{card}]")
 
 
 class _Spy:
@@ -3025,18 +3290,15 @@ def phase_moe(device, fam: dict) -> int:
     laps.lap("check")
     _moe_layer_check(model, params, ids, m["check_capacity"])
     laps.lap("layer check")
-    prof_steps = _profile_decode(model, params, serve_kw, device,
-                                 *fam["profile"])
     del params
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    laps.lap("profiled decode")
     print(laps.line("phase 8 (b)"))
     a = _attention_calls(cfg, "decode")
     steps = serve_kw["prompt_len"] + serve_kw["gen"]
     # serve; two prefills; the check's two forwards and steps; the layer
-    # check's one attention; the profiled steps
-    return a * (steps + 2 + 2 + check_steps + prof_steps) + 1
+    # check's one attention
+    return a * (steps + 2 + 2 + check_steps) + 1
 
 
 def phase_whisper(device, fam: dict) -> int:
@@ -3090,13 +3352,10 @@ def phase_whisper(device, fam: dict) -> int:
     assert math.isfinite(err) and err <= ATTN_TOLS["bfloat16"] * scale, \
         (err, scale)
     del caches
-    laps.lap("prefill and steps")
-    prof_steps = _profile_decode(model, params, serve_kw, device,
-                                 *fam["profile"])
     del params, model
     if cuda:
         torch.cuda.empty_cache()
-    laps.lap("profiled decode")
+    laps.lap("prefill and steps")
     print(f"  serve {serve_kw}")
     _serve(w["arch"], device, serve_kw)
     if cuda:
@@ -3148,7 +3407,7 @@ def phase_whisper(device, fam: dict) -> int:
     train_steps = k + (2 if cuda else 0)
     return (2 * _attention_calls(cfg, "prefill")
             + _attention_calls(cfg, "forward") + n * dec
-            + dec * (prof_steps + serve_kw["prompt_len"] + serve_kw["gen"])
+            + dec * (serve_kw["prompt_len"] + serve_kw["gen"])
             + train_steps * _attention_calls(cfg, "forward"))
 
 
@@ -3449,8 +3708,9 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     phase_predict(device, out.profile_path)
     phase_search(device, search)
     runner_dir = workdir.parent / f"{workdir.name}-runner"
-    phase_runner(device, runner, runner_dir, out.profile_path)
+    rates = phase_runner(device, runner, runner_dir, out.profile_path)
     phase_deepflow(device, deepflow, runner_dir)
+    phase_bucketed(device, runner, runner_dir, rates)
     t3 = time.perf_counter()
     print(f"# phase 4: {t3 - t2:.2f}s")
     serve_launches = phase_serve(device, serve_kw, check_len)

@@ -26,22 +26,27 @@ Everything runs on the device the caller names, the card unless it asks
 for ``"cpu"``; the points of one batch must all live there.  The rows are
 the reference's with its bucketing off: the packed float32 batch at or
 above ``min_batch_jit`` misses, the eager rows below it (the two differ at
-float32 rounding, since the eager path keeps Python-float leaves).
+float32 rounding, since the eager path keeps Python-float leaves).  Asked
+for (``bucketed=True``, or the process default, off in the port), a batch
+is scored through its design's canonical bucket (`core/compileahead.py`)
+instead, even one miss, so every backend replays the same graph and rows
+are bit for bit equal across backends.  It is off by default because
+the port's compile is a host trace per design that a fresh process pays
+in full (PERF.md).
 
-Left out, because they are the JAX package's execution machinery rather
-than the model, and where each goes (ROADMAP queue 1):
+The compiled-function store `_COMPILED` (an LRU of `CompiledEntry`, with
+pins, hit / miss counts and the compile and stall seconds of
+`compile_cache_stats`) holds the batched functions of every path, as the
+reference's does.  ``devices`` spreads rows over several devices (default
+1; the caller asks for more): shard *i* of the rows runs on ``cuda:i`` on
+its own stream and the rows are gathered back in order; on the host,
+``n`` shards run on a thread pool (`set_host_devices` sets how many
+``shard_devices=True`` means there, the counterpart of XLA's forced host
+devices, which the reference's tests use for ``pmap``).
 
-  * the compiled-function caches (``CompiledEntry``, ``pin_compiled``,
-    ``compile_cache_stats``, ``clear_compiled_caches``) and cross-design
-    bucketing: item 11 (b) decides on a torch counterpart
-    (``compileahead``); nothing here is compiled, so nothing is cached
-    but rows (and `evaluate_budgets`' vmapped functions, per skeleton);
-  * ``shard_devices`` and ``evaluate_matrix(devices > 1)``: item 9 (b)
-    (the search layer's parallelism).  One card is one device; asking
-    for more raises;
-  * `sweep`'s ``strategies_fn`` hook, which nothing sets;
-  * `PredictionCache`'s one-key ``get`` / ``put``: the evaluator looks up
-    and inserts a batch at a time (``get_many`` / ``put_many``).
+Left out: `sweep`'s ``strategies_fn`` hook, which nothing sets, and
+`PredictionCache`'s one-key ``get`` / ``put`` (the evaluator looks up
+and inserts a batch at a time: ``get_many`` / ``put_many``).
 
 `evaluate_budgets` scores a stack of SOE budget vectors in one vmapped,
 differentiable call; `hw_ctx` is the live hardware ctx of the traced
@@ -56,6 +61,7 @@ import collections
 import dataclasses
 import itertools
 import math
+import os
 import threading
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -295,6 +301,286 @@ def clear_prediction_cache() -> None:
 
 
 # ---------------------------------------------------------------------------
+# The compiled-function store
+# ---------------------------------------------------------------------------
+
+# LRU of every batched function the search paths dispatch (per-skeleton
+# vmapped functions, the pipeline's design and frontier functions, the
+# buckets' vmapped graphs), as `CompiledEntry` values.  Guarded by a lock
+# so thread-parallel sweep workers get one entry per key.
+_COMPILED: "collections.OrderedDict[tuple, Callable]" = \
+    collections.OrderedDict()
+_COMPILED_MAXSIZE = int(os.environ.get("REPRO_COMPILED_MAXSIZE", "128"))
+_COMPILED_LOCK = threading.Lock()
+# Pin counts per key.  A pinned entry is never evicted by the LRU sweep:
+# the compile-ahead service pins a key from the moment it is queued until
+# its first dispatch.  The store may transiently exceed maxsize while pins
+# are held.  `compileahead`'s design registry honours the same pins.
+_COMPILED_PINS: Dict[tuple, int] = {}
+# hit / miss counts of every store lookup (a miss builds one entry);
+# ``compile_seconds`` accumulates the wall time of the port's compile, a
+# design's trace, canonicalization and packs' upload (wherever it runs:
+# the service's threads or the dispatch path), and ``stall_seconds`` only
+# the time a dispatching caller waited for one, the number compile-ahead
+# exists to drive to zero
+_COMPILE_STATS = {"hits": 0, "misses": 0,
+                  "compile_seconds": 0.0, "stall_seconds": 0.0}
+
+
+def compile_cache_stats() -> Dict[str, float]:
+    """Process-wide store counters: ``hits`` / ``misses`` (ints) and the
+    cumulative ``compile_seconds`` / ``stall_seconds`` (floats)."""
+    with _COMPILED_LOCK:
+        return dict(_COMPILE_STATS)
+
+
+def set_compiled_maxsize(n: int) -> int:
+    """Set the store's LRU capacity; returns the previous value.
+
+    Also set at process start by env ``REPRO_COMPILED_MAXSIZE``.  Pinned
+    entries are exempt from eviction, so the store may transiently hold
+    more than ``n`` entries."""
+    global _COMPILED_MAXSIZE
+    if n <= 0:
+        raise ValueError(f"compiled maxsize must be positive, got {n}")
+    with _COMPILED_LOCK:
+        prev, _COMPILED_MAXSIZE = _COMPILED_MAXSIZE, n
+        _evict_locked(_COMPILED)
+    return prev
+
+
+def compiled_maxsize() -> int:
+    return _COMPILED_MAXSIZE
+
+
+def pin_compiled(key: tuple) -> None:
+    """Protect ``key`` from LRU eviction until the matching
+    `unpin_compiled`.  Reentrant (a count is kept); a key not in the store
+    yet may be pinned (the service pins at submit time)."""
+    with _COMPILED_LOCK:
+        _COMPILED_PINS[key] = _COMPILED_PINS.get(key, 0) + 1
+
+
+def unpin_compiled(key: tuple) -> None:
+    with _COMPILED_LOCK:
+        n = _COMPILED_PINS.get(key, 0) - 1
+        if n > 0:
+            _COMPILED_PINS[key] = n
+        else:
+            _COMPILED_PINS.pop(key, None)
+        _evict_locked(_COMPILED)
+
+
+def is_pinned(key: tuple) -> bool:
+    with _COMPILED_LOCK:
+        return bool(_COMPILED_PINS.get(key))
+
+
+def _evict_locked(store: "collections.OrderedDict") -> None:
+    # the caller holds _COMPILED_LOCK: evict the oldest unpinned entries
+    # until the store fits; pinned ones keep their place
+    excess = len(store) - _COMPILED_MAXSIZE
+    for key in list(store):
+        if excess <= 0:
+            break
+        if _COMPILED_PINS.get(key):
+            continue
+        del store[key]
+        excess -= 1
+
+
+def _add_compile_seconds(dt: float, stalled: bool) -> None:
+    with _COMPILED_LOCK:
+        _COMPILE_STATS["compile_seconds"] += dt
+        if stalled:
+            _COMPILE_STATS["stall_seconds"] += dt
+
+
+def _add_stall_seconds(dt: float) -> None:
+    with _COMPILED_LOCK:
+        _COMPILE_STATS["stall_seconds"] += dt
+
+
+def _compiled_get_or_create(store: "collections.OrderedDict", key: tuple,
+                            build: Callable[[], Callable]) -> Callable:
+    with _COMPILED_LOCK:
+        fn = store.get(key)
+        if fn is not None:
+            store.move_to_end(key)
+            _COMPILE_STATS["hits"] += 1
+            return fn
+        fn = store[key] = build()
+        _COMPILE_STATS["misses"] += 1
+        _evict_locked(store)
+        return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of an argument not made yet (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = F32
+
+
+def signature(args) -> tuple:
+    """(shape, dtype) of every tensor or `TensorSpec` leaf of ``args``."""
+    if isinstance(args, (list, tuple)):
+        return tuple(signature(a) for a in args)
+    return (tuple(args.shape), str(args.dtype))
+
+
+class CompiledEntry:
+    """A `_COMPILED` value: a batched callable under its key.
+
+    The reference holds an XLA executable per input signature.  Nothing
+    is compiled here: a batched function runs as it is, and the port's
+    compile, a design's trace, is `compileahead.design_vector`'s."""
+
+    def __init__(self, key: tuple, wrapper: Callable):
+        self.key = key
+        self.wrapper = wrapper
+
+    def __call__(self, *args):
+        return self.wrapper(*args)
+
+
+def compiled_entry(key: tuple,
+                   build_wrapper: Callable[[], Callable]) -> CompiledEntry:
+    """Get-or-create a `CompiledEntry` in the process-wide `_COMPILED`
+    LRU (hit / miss accounting shared with every other entry)."""
+    return _compiled_get_or_create(
+        _COMPILED, key, lambda: CompiledEntry(key, build_wrapper()))
+
+
+def clear_compiled_caches() -> None:
+    """Drop every stored batched function (benchmarks use this to measure
+    cold paths; it also frees the closed-over graphs).  Pins go too, and
+    the compile-ahead registry of designs and buckets is reset."""
+    with _COMPILED_LOCK:
+        _COMPILED.clear()
+        _COMPILED_PINS.clear()
+    with _BUDGET_LOCK:
+        _BUDGET_FNS.clear()
+    from repro_torch.core import compileahead   # lazy: it imports us
+    compileahead._clear_registries()
+
+
+# ---------------------------------------------------------------------------
+# Devices
+# ---------------------------------------------------------------------------
+
+_HOST_DEVICES = 1
+
+
+def set_host_devices(n: int) -> int:
+    """How many host shards ``shard_devices=True`` means on the CPU
+    (default 1); returns the previous value."""
+    global _HOST_DEVICES
+    if n <= 0:
+        raise ValueError(f"host devices must be positive, got {n}")
+    prev, _HOST_DEVICES = _HOST_DEVICES, int(n)
+    return prev
+
+
+def local_device_count(device) -> int:
+    """The devices ``shard_devices=True`` spreads rows over: every card on
+    ``cuda``, the host shards on ``cpu``."""
+    dev = torch.device(device)
+    return torch.cuda.device_count() if dev.type == "cuda" \
+        else _HOST_DEVICES
+
+
+def shard_devices(device, n: Optional[int] = None) -> List[torch.device]:
+    """The devices of ``n`` shards (default 1) of rows whose home is
+    ``device``: ``cuda:0`` .. ``cuda:n-1``, or ``n`` host shards.  More
+    cards than the host has is an error naming both numbers."""
+    dev = torch.device(device)
+    n = 1 if n is None else int(n)
+    if n <= 0:
+        raise ValueError(f"devices must be positive, got {n}")
+    if dev.type != "cuda":
+        return [dev] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise ValueError(f"devices={n}: this host has {have} CUDA "
+                         f"device{'s' if have != 1 else ''}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+_SHARD_POOL = None
+_SHARD_POOL_LOCK = threading.Lock()
+
+
+def _shard_pool(n: int):
+    global _SHARD_POOL
+    from concurrent.futures import ThreadPoolExecutor
+    with _SHARD_POOL_LOCK:
+        if _SHARD_POOL is None or _SHARD_POOL._max_workers < n:
+            _SHARD_POOL = ThreadPoolExecutor(
+                max(n, 2), thread_name_prefix="repro-shard")
+        return _SHARD_POOL
+
+
+def run_sharded(fn_for: Callable[[torch.device], Callable],
+                shards: Sequence[tuple], devices: Sequence[torch.device],
+                home) -> torch.Tensor:
+    """``fn_for(devices[i])(*shards[i])`` for every shard at once, the
+    results concatenated in shard order on ``home``.
+
+    On the card the inputs (made on the caller's stream) are waited for,
+    then shard ``i`` goes to ``devices[i]`` and runs there on a stream of
+    its own, and its rows come back to ``home`` before this returns.  On
+    the host the shards run on a thread pool."""
+    home = torch.device(home)
+    cuda = home.type == "cuda"
+    if cuda:
+        torch.cuda.current_stream(home).synchronize()
+
+    def one(i: int) -> torch.Tensor:
+        dev = devices[i]
+        if dev.type != "cuda":
+            with torch.no_grad():
+                return fn_for(dev)(*shards[i])
+        with torch.cuda.device(dev), torch.no_grad():
+            stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(stream):
+                args = [tuple(t.to(dev) for t in a) if isinstance(a, tuple)
+                        else a.to(dev) for a in shards[i]]
+                out = fn_for(dev)(*args).to(home)
+            stream.synchronize()
+            return out
+
+    outs = list(_shard_pool(len(shards)).map(one, range(len(shards))))
+    if cuda:        # made on the shards' streams, read on the caller's
+        for out in outs:
+            out.record_stream(torch.cuda.current_stream(home))
+    return torch.cat(outs)
+
+
+def sharded(fn_for: Callable[[torch.device], Callable],
+            devices: Sequence[torch.device], home) -> Callable:
+    """``fn(*args)`` over arguments with a leading device axis (a tuple
+    argument: each of its tensors has one): shard ``i`` of every argument
+    goes through ``fn_for(devices[i])``, made once per device, by
+    `run_sharded`."""
+    fns: Dict[str, Callable] = {}
+
+    def fn_on(dev):
+        if str(dev) not in fns:
+            fns[str(dev)] = fn_for(dev)
+        return fns[str(dev)]
+
+    def fn(*args):
+        return run_sharded(fn_on, [
+            tuple(tuple(t[i] for t in a) if isinstance(a, tuple) else a[i]
+                  for a in args) for i in range(len(devices))],
+            devices, home)
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # Batched evaluator (one skeleton, many hardware points)
 # ---------------------------------------------------------------------------
 
@@ -317,20 +603,37 @@ def _skeleton_key(graph_fp: str, strategy: Strategy,
             pod_bw, tuple(systolic_dims), device)
 
 
-def _item9(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: one card is one device; spreading the rows over several "
-        f"cards is the search layer's parallelism (ROADMAP queue 1 item 9 "
-        f"(b)); the runtime's mesh is repro_torch.launch.mesh")
+def arch_on(arch: MicroArch, device) -> MicroArch:
+    """``arch`` with its tensor leaves on ``device`` (a copy; ``arch``
+    itself when it lives there already)."""
+    dev = torch.device(device)
+    if _device_name(arch.device) == _device_name(dev):
+        return arch
+
+    def leaf(v):
+        if isinstance(v, tuple):
+            return tuple(leaf(x) for x in v)
+        return v.to(dev) if torch.is_tensor(v) else v
+
+    return dataclasses.replace(arch, device=dev, **{
+        f.name: leaf(getattr(arch, f.name))
+        for f in dataclasses.fields(arch) if f.name not in ("tech",
+                                                            "device")})
+
+
+HW_SPEC = TensorSpec((HW_DIM,), F32)
 
 
 class BatchedEvaluator:
     """Scores many MicroArch candidates on one (graph, strategy, system).
 
     The scalar prediction is `simulate.predict` on one unpacked hardware
-    row; ``torch.func.vmap`` maps it over the hardware matrix on
-    ``device`` (the card unless the caller asks for ``"cpu"``), where
-    every candidate must live.
+    row; with bucketing (``bucketed``, default the process default, off)
+    it is traced once per skeleton into its design's canonical bucket
+    (`core/compileahead.py`), else ``torch.func.vmap`` maps it over the
+    hardware matrix directly.  Rows are scored on ``device`` (the card
+    unless the caller asks for ``"cpu"``), where every candidate must
+    live; ``devices`` / ``shard_devices`` spread them over more.
     """
 
     def __init__(self, graph: ComputeGraph, strategy: Strategy,
@@ -339,7 +642,7 @@ class BatchedEvaluator:
                  n_microbatches: Optional[int] = None,
                  pod_bw: Optional[float] = None,
                  cache: Optional[PredictionCache] = DEFAULT_CACHE,
-                 device=None):
+                 bucketed: Optional[bool] = None, device=None):
         self.graph = graph
         self.strategy = strategy
         self.system = system or simulate.default_system(strategy)
@@ -348,6 +651,7 @@ class BatchedEvaluator:
         self.n_microbatches = n_microbatches
         self.pod_bw = pod_bw
         self.cache = resolve_cache(cache)
+        self.bucketed = bucketed
         self.device = resolve_device(device)
         self._device_name = _device_name(self.device)
         self._graph_fp = graph.fingerprint()
@@ -378,27 +682,70 @@ class BatchedEvaluator:
                 bd.pipeline_bubble_s)])
         return scalar
 
-    def _batched(self, template: MicroArch, hw: np.ndarray) -> np.ndarray:
-        """One vmapped prediction over packed float32 rows: the matrix
-        crosses to the device once and the rows come back once."""
+    def _host_scalar(self, template: MicroArch) -> Callable[[], Callable]:
+        """What `compileahead.design_vector` traces: the scalar function
+        on a host copy of the template (tracing launches nothing on the
+        card)."""
+        return lambda: self._scalar_fn(arch_on(template, "cpu"))
+
+    def _use_bucketed(self) -> bool:
+        from repro_torch.core import compileahead
+        return compileahead.resolve_bucketed(self.bucketed)
+
+    def _compiled(self, template: MicroArch,
+                  bucketed: Optional[bool] = None) -> Callable:
+        """``fn(hw)``: (B, HW_DIM) float32 rows on the evaluator's device
+        -> (B, 5) float32 rows, through the design's bucket or (``bucketed``
+        False) the per-skeleton vmapped function."""
+        key = self._skeleton(template)
+        if self._use_bucketed() if bucketed is None else bucketed:
+            from repro_torch.core import compileahead
+            return compileahead.design_batch_fn(
+                ("skel", key), self._host_scalar(template), (HW_SPEC,),
+                device=self.device, trace_key=("skel", key[:-1]))
+        return _compiled_get_or_create(
+            _COMPILED, key,
+            lambda: CompiledEntry(
+                key, torch.func.vmap(self._scalar_fn(template))))
+
+    def _compiled_sharded(self, template: MicroArch,
+                          devices: Sequence[torch.device]) -> Callable:
+        """``fn(hw)``: rows ``(D, B/D, HW_DIM)``, shard ``i`` on
+        ``devices[i]`` through the per-skeleton vmapped function (the
+        legacy path: `evaluate_matrix` never buckets)."""
+        key = self._skeleton(template) + ("sharded", tuple(map(str,
+                                                              devices)))
+        return _compiled_get_or_create(
+            _COMPILED, key, lambda: CompiledEntry(key, sharded(
+                lambda dev: torch.func.vmap(
+                    self._scalar_fn(arch_on(template, dev))),
+                devices, self.device)))
+
+    def _rows(self, fn: Callable, hw: np.ndarray) -> np.ndarray:
+        """The float32 matrix up to the device once, ``fn`` over it, the
+        rows back once."""
         x = torch.as_tensor(hw, dtype=F32).to(self.device)
         with torch.no_grad():
-            rows = torch.func.vmap(self._scalar_fn(template))(x)
-        return rows.cpu().numpy().astype(np.float64)
+            rows = fn(x)
+        return rows.reshape(-1, len(METRICS)).cpu().numpy() \
+            .astype(np.float64)
 
     # -- public API -------------------------------------------------------
     def evaluate(self, archs: Sequence[MicroArch],
                  min_batch_jit: int = 2,
-                 shard_devices: bool = False) -> np.ndarray:
+                 shard_devices: bool = False,
+                 shard_block: int = 0) -> np.ndarray:
         """Score MicroArch candidates -> (B, 5) rows ordered like METRICS.
 
         Cached points are returned for free; the misses are scored in one
-        vmapped call on their packed float32 rows, or each on its own
+        batched call on their packed float32 rows, or each on its own
         leaves when fewer than `min_batch_jit` misses remain (the
-        reference's threshold for paying a compile; its meaning is kept).
+        reference's threshold for paying a compile).  With bucketing asked
+        for, every miss goes through the design's bucket, as in the
+        reference.  With ``shard_devices`` the misses are spread over
+        every local device (`local_device_count`) by `evaluate_matrix`,
+        ``shard_block`` its padding block.
         """
-        if shard_devices:
-            raise _item9("shard_devices")
         archs = list(archs)
         if not archs:
             return np.zeros((0, len(METRICS)), dtype=np.float64)
@@ -424,8 +771,13 @@ class BatchedEvaluator:
                 out[i] = row
         if not misses:
             return out
-        if len(misses) >= min_batch_jit:
-            rows = self._batched(archs[0], vecs[misses])
+        if shard_devices and len(misses) >= max(
+                min_batch_jit, local_device_count(self.device)):
+            rows = self.evaluate_matrix(
+                archs[0], vecs[misses],
+                devices=local_device_count(self.device), block=shard_block)
+        elif len(misses) >= min_batch_jit or self._use_bucketed():
+            rows = self._rows(self._compiled(archs[0]), vecs[misses])
         else:
             rows = np.stack([self._eager_row(archs[i]) for i in misses])
         out[misses] = rows
@@ -435,20 +787,38 @@ class BatchedEvaluator:
         return out
 
     def evaluate_matrix(self, template: MicroArch, hw_matrix,
-                        devices: Optional[int] = None) -> np.ndarray:
+                        devices: Optional[int] = None,
+                        block: int = 0) -> np.ndarray:
         """Score an (N, HW_DIM) struct-of-arrays hardware matrix directly:
-        no per-point MicroArch objects and no cache keys; the matrix enters
-        the device as one float32 array."""
-        if devices is not None and devices > 1:
-            raise _item9(f"evaluate_matrix(devices={devices})")
+        no per-point MicroArch objects, no cache keys; the matrix enters
+        the device as one float32 array.
+
+        ``devices`` (default 1) splits the rows into that many shards,
+        shard *i* on ``cuda:i`` (or a host shard).  ``block`` > 0 pads N up to a multiple of ``block``
+        x devices by repeating the last row, sliced off the result.  This
+        path never buckets: it is ONE design over a large hardware batch,
+        with nothing to amortize across designs, as in the reference.
+        """
         self._check_device(template)
         hw = np.asarray(hw_matrix, dtype=np.float32)
         if hw.ndim != 2 or hw.shape[1] != HW_DIM:
             raise ValueError(f"hw_matrix must be (N, {HW_DIM}), "
                              f"got {hw.shape}")
-        if hw.shape[0] == 0:
+        n = hw.shape[0]
+        devs = shard_devices(self.device, devices)
+        if n == 0:
             return np.zeros((0, len(METRICS)), dtype=np.float64)
-        return self._batched(template, hw)
+        devs = devs[:max(min(len(devs), n), 1)]
+        quantum = len(devs) * max(block, 1)
+        target = -(-n // quantum) * quantum
+        if target != n:
+            hw = np.concatenate([hw, np.repeat(hw[-1:], target - n, axis=0)])
+        if len(devs) > 1:
+            fn = self._compiled_sharded(template, devs)
+            hw = hw.reshape(len(devs), target // len(devs), HW_DIM)
+        else:
+            fn = self._compiled(template, bucketed=False)
+        return self._rows(fn, hw)[:n]
 
     def _eager_row(self, arch: MicroArch) -> np.ndarray:
         bd = simulate.predict(arch, self.graph, self.strategy,
@@ -479,30 +849,32 @@ def _evaluate_points_impl(points: Sequence[EvalPoint],
                           ppe: PPEConfig = PPEConfig(),
                           cache: Optional[PredictionCache] = DEFAULT_CACHE,
                           min_batch_jit: int = 4,
-                          shard_devices: bool = False) -> np.ndarray:
+                          shard_devices: bool = False,
+                          shard_block: int = 0,
+                          bucketed: Optional[bool] = None) -> np.ndarray:
     """Score a heterogeneous candidate list -> (N, 5) metric matrix.
 
     Points are grouped by skeleton (graph fingerprint, strategy, system,
     ppe, device); each group is one struct-of-arrays batch on its points'
     device.  Hardware-only axes (techlib nodes, budget variants) therefore
-    collapse into single vmapped calls, while structure-changing axes
-    (strategy, mesh) form their own groups.
+    collapse into single batched calls, while structure-changing axes
+    (strategy, mesh) form their own groups.  ``shard_devices`` spreads each
+    group's rows over the local devices (`BatchedEvaluator.evaluate_matrix`).
     """
-    if shard_devices:
-        raise _item9("shard_devices")
     out = np.zeros((len(points), len(METRICS)), dtype=np.float64)
     groups: Dict[tuple, List[int]] = {}
     evaluators: Dict[tuple, BatchedEvaluator] = {}
     for i, p in enumerate(points):
         ev = BatchedEvaluator(p.graph, p.strategy, system=p.system, ppe=ppe,
                               pod_bw=p.pod_bw, cache=cache,
-                              device=p.arch.device)
+                              bucketed=bucketed, device=p.arch.device)
         key = ev._skeleton(p.arch)
         groups.setdefault(key, []).append(i)
         evaluators.setdefault(key, ev)
     for key, idxs in groups.items():
         out[idxs] = evaluators[key].evaluate(
-            [points[i].arch for i in idxs], min_batch_jit=min_batch_jit)
+            [points[i].arch for i in idxs], min_batch_jit=min_batch_jit,
+            shard_devices=shard_devices, shard_block=shard_block)
     return out
 
 
@@ -517,24 +889,30 @@ def evaluate(points: Optional[Sequence[EvalPoint]] = None, *,
              cache: Optional[PredictionCache] = DEFAULT_CACHE,
              min_batch_jit: int = 4,
              shard_devices: bool = False,
-             devices: Optional[int] = None, device=None):
+             shard_block: int = 0,
+             devices: Optional[int] = None, device=None,
+             bucketed: Optional[bool] = None):
     """Score candidates — THE eval entry point, in one of its modes.
 
     Exactly one mode per call (mixing raises ``ValueError``):
 
     * **points mode** — ``evaluate(points=[EvalPoint, ...])``: a
       heterogeneous candidate list, grouped by skeleton so hardware-only
-      axes collapse into single vmapped calls, each on its points' device;
+      axes collapse into single batched calls, each on its points' device;
       returns an ``(N, 5)`` float64 matrix ordered like `METRICS`.
     * **matrix mode** — ``evaluate(template=MicroArch, matrix=(N,
       HW_DIM), graph=..., strategy=...)``: the matrix-native path on the
-      template's device.
+      template's device, spread over ``devices`` with ``shard_block``
+      padding.
     * **label mode** — ``evaluate(spec=SweepSpec, labels=[PointLabel,
       ...])``: resolves sweep labels through their scenario on ``device``
       (the card unless the caller asks for ``"cpu"``; PPE/profile come
       from the spec, not the ``ppe`` argument) and returns the scenario's
       *result records* (list of dicts), exactly what
       `sweeprunner.SweepRunner` commits per chunk.
+
+    ``bucketed`` (points and label modes) overrides the process's
+    bucketing default for this call (`core/compileahead.py`).
     """
     n_modes = sum((points is not None,
                    spec is not None or labels is not None,
@@ -550,7 +928,9 @@ def evaluate(points: Optional[Sequence[EvalPoint]] = None, *,
     if points is not None:
         return _evaluate_points_impl(points, ppe=ppe, cache=cache,
                                      min_batch_jit=min_batch_jit,
-                                     shard_devices=shard_devices)
+                                     shard_devices=shard_devices,
+                                     shard_block=shard_block,
+                                     bucketed=bucketed)
     if matrix is not None or template is not None:
         if template is None or matrix is None or graph is None \
                 or strategy is None:
@@ -559,27 +939,30 @@ def evaluate(points: Optional[Sequence[EvalPoint]] = None, *,
         ev = BatchedEvaluator(graph, strategy, system=system, ppe=ppe,
                               pod_bw=pod_bw, cache=cache,
                               device=template.device)
-        return ev.evaluate_matrix(template, matrix, devices=devices)
+        return ev.evaluate_matrix(template, matrix, devices=devices,
+                                  block=shard_block)
     if spec is None or labels is None:
         raise ValueError("label mode needs both spec= and labels=")
     from repro_torch.core import sweeprunner   # lazy: it imports us
     return sweeprunner._eval_labels_impl(spec, labels, cache=cache,
                                          shard_devices=shard_devices,
-                                         device=device)
+                                         device=device, bucketed=bucketed)
 
 
 def evaluate_points(points: Sequence[EvalPoint],
                     ppe: PPEConfig = PPEConfig(),
                     cache: Optional[PredictionCache] = DEFAULT_CACHE,
                     min_batch_jit: int = 4,
-                    shard_devices: bool = False) -> np.ndarray:
+                    shard_devices: bool = False,
+                    shard_block: int = 0) -> np.ndarray:
     """Deprecated alias — use ``evaluate(points=...)``."""
     warnings.warn("pathfinder.evaluate_points is deprecated; use "
                   "pathfinder.evaluate(points=...)",
                   DeprecationWarning, stacklevel=2)
     return _evaluate_points_impl(points, ppe=ppe, cache=cache,
                                  min_batch_jit=min_batch_jit,
-                                 shard_devices=shard_devices)
+                                 shard_devices=shard_devices,
+                                 shard_block=shard_block)
 
 
 # ---------------------------------------------------------------------------

@@ -119,14 +119,20 @@ _GEMM_CACHE_LOCK = threading.Lock()
 
 def _carries_graph(v) -> bool:
     """True for a value that must not be cached: a tensor that requires
-    grad (its result would carry an autograd graph), a batched one, or one
-    wrapped by a ``torch.func`` transform.  Under ``torch.func.vmap`` a
-    leaf looks 0-d and has no value to key on (``float`` of it raises), as
-    a JAX tracer has none: the reference skips its cache for those
-    (``is_tracer``), and so does this."""
+    grad (its result would carry an autograd graph), a batched one, one
+    wrapped by a ``torch.func`` transform, or any tensor while a dispatch
+    mode traces (`core/compileahead.py`'s recorder, ``make_fx``: the value
+    is one design's, and a cached result would be baked into every
+    design's graph).  Under
+    ``torch.func.vmap`` a leaf looks 0-d and has no value to key on
+    (``float`` of it raises), as a JAX tracer has none: the reference
+    skips its cache for those (``is_tracer``), and so does this."""
     return torch.is_tensor(v) and (
         v.requires_grad or v.dim() > 0
-        or torch._C._functorch.is_functorch_wrapped_tensor(v))
+        or torch._C._functorch.is_functorch_wrapped_tensor(v)
+        or torch._C._len_torch_dispatch_stack() > 0
+        or torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.PROXY) is not None)
 
 
 def _cache_key(arch: MicroArch, m, n, k, b, dtype_bytes, cfg: PPEConfig):

@@ -17,13 +17,26 @@ double-buffered pipeline (`SweepRunner(backend="pipeline")`, the default):
     ``(B, HW_DIM)`` miss matrix is a NumPy gather over unique rows, never
     a per-label Python pack;
   * the **device stage** (the caller's thread) dispatches consecutive
-    chunks as one *superbatch* on the executor's own CUDA stream: every
-    eval point of a design is fused into one ``torch.func.vmap`` of the
-    design function (a serving design's prefill and decode graphs are one
-    call, not two), the packed matrix rides up from pinned host memory
-    with ``non_blocking=True``, and each group's rows go back into a
+    chunks as one *superbatch* on the executor's own CUDA stream.  With
+    bucketing (off by default, `core/compileahead.py`) every (design,
+    eval-point) pair whose canonical graph landed in one bucket rides in
+    one *megabatch*: the rows of many designs, each row gathering its
+    design's coefficient packs, through one vmapped replay of the shared
+    graph; without it, every eval point of a design is fused into one
+    ``torch.func.vmap`` of the design function (a serving design's
+    prefill and decode graphs are one call, not two).  Either way the
+    packed matrix rides up from pinned host memory with
+    ``non_blocking=True``, batches are block-padded, a batch of at least
+    ``shard_min_rows`` rows is split over ``devices`` (shard *i* on
+    ``cuda:i``, `pathfinder.run_sharded`), and the rows go back into a
     pinned host buffer the same way, followed by a recorded
     ``torch.cuda.Event``;
+  * with ``compile_ahead`` > 0 the producer packs that many superbatches
+    ahead of the device stage and hands their designs to the compile
+    service (`compileahead.CompileService.warm_design`), so the designs'
+    traces — the port's compile — run off the critical path; a design
+    the service has not reached is traced inline by the device stage
+    (``stall_seconds``);
   * a **writer thread** waits on each group's event (never on
     ``torch.cuda.synchronize()``, which would stall the superbatch behind
     it), folds records through the scenario's `metrics_fold` fast path and
@@ -49,12 +62,8 @@ only the surviving frontier (plus its raw metric rows) comes to host, at
 each committed superbatch's checkpoint and at the end — full per-point
 rows never materialize.
 
-Limits of this slice (ROADMAP queue 1), each of which raises naming its
-item: ``devices > 1`` (the reference's ``pmap`` branch: item 9 (b));
-``bucketing`` other than None / False and ``compile_ahead`` other than
-None / 0 (the compile-ahead service and cross-design bucketing: item 11
-(b)).  The port dispatches one group per design skeleton, the reference's
-``bucketing=False`` path, whose records are the same.
+The streaming frontier scores its rows as the full path does (bucketed
+or not), so its payload rows are the records' rows bit for bit.
 """
 
 from __future__ import annotations
@@ -82,9 +91,16 @@ from repro_torch.core.placement import mesh_system
 # superbatch so per-dispatch overhead amortizes over ~10x more points than
 # the default chunk size (commit granularity stays per chunk)
 SUPERBATCH = 256
+# superbatches packed (and their designs handed to the compile service)
+# ahead of the device stage, so a cold sweep's traces run off the critical
+# path (see repro_torch.core.compileahead); 0 disables lookahead
+COMPILE_AHEAD = 2
 # packed-superbatch lookahead per queue (producer -> device -> writer):
 # 2 = double buffering at each stage boundary
 QUEUE_DEPTH = 2
+# minimum rows of one dispatch before splitting it over several devices
+# pays (the reference's PMAP_MIN_ROWS): below it, one device's batch
+SHARD_MIN_ROWS = 1024
 
 # process-global packed-hardware rows, keyed like `sweeprunner._HW_CACHE`
 # (tech axis + budget overrides + profile digest + device).  Packing pulls
@@ -116,24 +132,13 @@ def _row_cache_put(key, ent: tuple) -> tuple:
         return ent
 
 
-def check_knobs(devices: Optional[int] = None,
-                compile_ahead: Optional[int] = None,
-                bucketing: Optional[bool] = None) -> None:
-    """Refuse the execution knobs of later items (see module docstring)."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            f"devices={devices}: one card is one device; spreading a "
-            f"superbatch over several cards is the search layer's "
-            f"parallelism (ROADMAP queue 1 item 9 (b))")
-    if bucketing not in (None, False):
-        raise NotImplementedError(
-            "bucketing=True (cross-design bucketed dispatch) is not ported "
-            "yet (ROADMAP queue 1 item 11 (b)); the port dispatches one "
-            "group per design, whose records are the same")
-    if compile_ahead not in (None, 0):
-        raise NotImplementedError(
-            f"compile_ahead={compile_ahead} (the compile-ahead service) is "
-            f"not ported yet (ROADMAP queue 1 item 11 (b))")
+def check_knobs(compile_ahead: Optional[int] = None) -> None:
+    """The execution knobs' own check: ``compile_ahead`` is a count of
+    superbatches (``devices`` is checked where the executor resolves it,
+    `pathfinder.shard_devices`)."""
+    if compile_ahead is not None and compile_ahead < 0:
+        raise ValueError(f"compile_ahead must be >= 0 superbatches, got "
+                         f"{compile_ahead}")
 
 
 def _join_producer(producer: threading.Thread, pack_q: "queue.Queue"):
@@ -185,17 +190,23 @@ class _DesignSkeleton:
 
 
 class _HostRows:
-    """One group's result rows on their way to the host: a pinned buffer
-    filled by a non-blocking copy and the event recorded behind it (on
-    the CPU, the rows themselves)."""
+    """One dispatch's result rows on their way to the host: a pinned
+    buffer filled by a non-blocking copy and the event recorded behind it
+    (on the CPU, the rows themselves).  A megabatch's rows are shared by
+    every (group, eval point) that rode in it, so they are read once."""
 
     def __init__(self, buf: torch.Tensor, event=None):
         self._buf, self._event = buf, event
+        self._host: Optional[np.ndarray] = None
 
     def rows(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._buf.numpy().astype(np.float64)
+        if self._host is None:
+            if self._event is not None:
+                self._event.synchronize()
+            host = self._buf.numpy().astype(np.float64)
+            self._host = host.reshape(-1, host.shape[-1])
+            self._buf = None
+        return self._host
 
 
 @dataclasses.dataclass
@@ -210,7 +221,9 @@ class _Group:
     row_bytes: List[bytes] = dataclasses.field(default_factory=list)
     slots: List[tuple] = dataclasses.field(default_factory=list)
     gidx: List[int] = dataclasses.field(default_factory=list)
-    out: Optional[_HostRows] = None  # in-flight result
+    # in-flight result: the group's rows, or (bucketed) one (rows, lo, hi)
+    # slice of a megabatch per eval point
+    out: object = None
     n: int = 0
 
 
@@ -229,8 +242,13 @@ class PipelineExecutor:
     """Asynchronous producer -> device -> writer pipeline for one spec on
     ``device`` (the card unless the caller asks for ``"cpu"``).
 
-    One instance per `SweepRunner.run` call; the packed hardware rows are
-    memoized process-wide, so repeated runs stay warm.
+    One instance per `SweepRunner.run` call; the packed hardware rows, the
+    designs' canonical buckets and the batched functions (the
+    process-wide `pathfinder._COMPILED` store) are memoized process-wide,
+    so repeated runs stay warm.  ``devices`` (default 1) bounds how many
+    devices a dispatch of at least ``shard_min_rows`` rows is split over;
+    ``compile_ahead`` (default `COMPILE_AHEAD`) and ``bucketing``
+    (default: the process default, off) are the reference's knobs.
     """
 
     def __init__(self, spec, cache=pathfinder.DEFAULT_CACHE,
@@ -238,21 +256,28 @@ class PipelineExecutor:
                  devices: Optional[int] = None,
                  threads: Optional[bool] = None,
                  compile_ahead: Optional[int] = None,
-                 bucketing: Optional[bool] = None, device=None):
-        from repro_torch.core import sweeprunner
-        check_knobs(devices, compile_ahead, bucketing)
+                 bucketing: Optional[bool] = None,
+                 shard_min_rows: int = SHARD_MIN_ROWS, device=None):
+        from repro_torch.core import compileahead, sweeprunner
+        check_knobs(compile_ahead)
         self.spec = spec
         self.cache = pathfinder.resolve_cache(cache)
         self.device = resolve_device(device)
         self._dev_name = pathfinder._device_name(self.device)
         self.ppe = sweeprunner.spec_ppe(spec)
         self.superbatch = max(int(superbatch), spec.chunk_size, 1)
+        self.shard_devs = pathfinder.shard_devices(self.device, devices)
+        self.devices = len(self.shard_devs)
+        self.shard_min_rows = shard_min_rows
         # producer/writer threads only pay off when the host has spare
         # cores for them: on <=3 cores the GIL serializes the Python
         # stages anyway, so the inline mode double-buffers through the
         # stream's asynchrony alone
         self.threads = threads if threads is not None \
             else (os.cpu_count() or 1) >= 4
+        self.compile_ahead = COMPILE_AHEAD if compile_ahead is None \
+            else int(compile_ahead)
+        self.bucketing = compileahead.resolve_bucketed(bucketing)
         self.block = sweeprunner.SHARD_BLOCK
         self.stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
@@ -262,7 +287,11 @@ class PipelineExecutor:
         self._hw: Dict[tuple, tuple] = {}
         self._rows: List[np.ndarray] = []     # unique packed hw rows
         self._rowmat: Optional[np.ndarray] = None
-        self._fns: Dict[tuple, Callable] = {}
+        self._streamed: set = set()           # ids on the stream already
+        # keys the compile service pinned on our behalf (see _prefetch);
+        # the device stage releases a key's pins after its first dispatch
+        self._aot_pins: "collections.Counter" = collections.Counter()
+        self._pin_lock = threading.Lock()
 
     # -- memoized resolution ---------------------------------------------
     def _hw_entry(self, lb) -> tuple:
@@ -340,48 +369,104 @@ class PipelineExecutor:
             cfg=sk.cfg, hw=hw, system=sk.system)
 
     # -- the batched functions -------------------------------------------
-    def _design_scalar(self, group: _Group) -> Callable:
+    def _on_this_stream(self, tensors) -> None:
+        """Tensors made on another stream (a template's leaves AGE'd by the
+        producer, packs uploaded by the compile service; each finished
+        before this stage can see it) are used on the executor's stream:
+        `record_stream` keeps the allocator from reusing them early."""
+        if self.stream is None:
+            return
+        for t in tensors:
+            if torch.is_tensor(t) and id(t) not in self._streamed:
+                t.record_stream(self.stream)
+                self._streamed.add(id(t))
+
+    def _template_on_stream(self, template) -> None:
+        for f in dataclasses.fields(template):
+            leaf = getattr(template, f.name)
+            self._on_this_stream(leaf if isinstance(leaf, tuple)
+                                 else (leaf,))
+
+    def _design_scalar(self, group: _Group, template=None) -> Callable:
         """v (HW_DIM,) -> (ppd, 5) metric rows: every eval point of one
-        design in one function."""
-        scalars = [ev._scalar_fn(group.template)
+        design in one function (on ``template``, default the group's)."""
+        scalars = [ev._scalar_fn(group.template if template is None
+                                 else template)
                    for ev in group.skel.evaluators]
 
         def design(v):
             return torch.stack([f(v) for f in scalars])
         return design
 
-    def _eval_fn(self, group: _Group) -> Callable:
-        """(B, HW_DIM) -> (B, ppd, 5): the design function, vmapped."""
-        key = ("design", group.keys)
-        fn = self._fns.get(key)
-        if fn is None:
-            if self.stream is not None:
-                for f in dataclasses.fields(group.template):
-                    leaf = getattr(group.template, f.name)
-                    for t in leaf if isinstance(leaf, tuple) else (leaf,):
-                        if torch.is_tensor(t):
-                            t.record_stream(self.stream)
-            fn = self._fns[key] = torch.func.vmap(self._design_scalar(group))
-        return fn
+    def _eval_build(self, group: _Group, n_dev: int) -> Callable:
+        """(B, HW_DIM) -> (B, ppd, 5), or with ``n_dev`` > 1 rows
+        ``(n_dev, B/n_dev, HW_DIM)`` split over the shard devices."""
+        def build():
+            self._template_on_stream(group.template)
+            if n_dev <= 1:
+                return torch.func.vmap(self._design_scalar(group))
+            return pathfinder.sharded(
+                lambda dev: torch.func.vmap(self._design_scalar(
+                    group, pathfinder.arch_on(group.template, dev))),
+                self.shard_devs[:n_dev], self.device)
+        return build
+
+    def _compiled_eval(self, group: _Group, n_dev: int) -> Callable:
+        return pathfinder.compiled_entry(("design", group.keys, n_dev),
+                                         self._eval_build(group, n_dev))
+
+    def _design_vectors(self, group: _Group) -> List:
+        """One canonical `DesignVector` per eval point of the group's
+        design, registered under the keys the serial backend uses — so
+        serial and pipelined sweeps share (and bit-match) the same
+        buckets."""
+        from repro_torch.core import compileahead
+        dvs = [compileahead.design_vector(
+            ("skel", key), ev._host_scalar(group.template),
+            (pathfinder.HW_SPEC,), device=self.device,
+            trace_key=("skel", key[:-1]))
+            for key, ev in zip(group.keys, group.skel.evaluators)]
+        for dv in dvs:
+            self._on_this_stream(dv.packs)
+        return dvs
+
+    def _group_rows_fn(self, group: _Group) -> Callable:
+        """(B, HW_DIM) -> (B, ppd, 5) through the design's buckets (or,
+        without bucketing, the vmapped design function): the rows the
+        streaming frontier folds, bit for bit the full path's."""
+        if not self.bucketing:
+            return self._compiled_eval(group, 1)
+        from repro_torch.core import compileahead
+        entries = [(compileahead.batch_entry(dv.bucket), dv)
+                   for dv in self._design_vectors(group)]
+        for key in group.keys:
+            self._release_pins(("skel", key))
+
+        def rows(hw):
+            return torch.stack([entry(dv.row_packs(hw.shape[0]), hw)
+                                for entry, dv in entries], dim=1)
+        return rows
 
     def _frontier_fn(self, group: _Group) -> Callable:
-        """(hw, idx, state) -> state: the vmapped design function, its
-        objective fold and one `pathfinder.frontier_merge`.  The fold is
-        part of the key: variants share eval shapes, not walls."""
-        key = ("frontier", group.keys, group.skel.fold_key)
-        fn = self._fns.get(key)
-        if fn is None:
-            design = self._eval_fn(group)
+        """(hw, idx, state) -> state: the group's rows, its objective fold
+        and one `pathfinder.frontier_merge`.  The fold is part of the
+        key: variants share eval shapes, not walls.  (The rows function
+        is made before the store's lock is taken: it may trace.)"""
+        design = self._group_rows_fn(group)
+
+        def build():
             fold = torch.func.vmap(group.skel.fold)
 
-            def fn(hw, idx, state):
+            def step(hw, idx, state):
                 rows = design(hw)                            # (B, ppd, 5)
                 vals = torch.where((idx < 0)[:, None], math.inf,
                                    fold(rows, hw))           # (B, n_obj)
                 return pathfinder.frontier_merge(
                     state, vals, rows.reshape(rows.shape[0], -1), idx)
-            self._fns[key] = fn
-        return fn
+            return step
+        return pathfinder.compiled_entry(
+            ("frontier", group.keys, group.skel.fold_key, self.bucketing),
+            build)
 
     # -- packing (producer side) -----------------------------------------
     def pack(self, chunks: Sequence) -> _Pack:
@@ -480,17 +565,25 @@ class PipelineExecutor:
             self._rowmat = mat
         return mat[idx]
 
-    def _padded(self, g: _Group) -> np.ndarray:
-        """The group's rows padded (repeating the last) to a multiple of
-        `sweeprunner.SHARD_BLOCK`, so a sweep's batches take a handful of
-        shapes."""
+    def _pad_plan(self, n: int) -> Tuple[int, int]:
+        """(devices, padded row target) of an ``n``-row dispatch: one
+        device below ``shard_min_rows``, the rows padded to a multiple of
+        `sweeprunner.SHARD_BLOCK` x devices, so a sweep's batches take a
+        handful of shapes."""
+        n_dev = max(min(self.devices, n), 1)
+        if n < self.shard_min_rows:
+            n_dev = 1
+        quantum = n_dev * self.block
+        return n_dev, -(-n // quantum) * quantum
+
+    def _padded(self, g: _Group) -> Tuple[np.ndarray, int]:
         hw = self._gather(g)
         n = hw.shape[0]
-        target = -(-n // self.block) * self.block
+        n_dev, target = self._pad_plan(n)
         if target != n:
             hw = np.concatenate([hw, np.repeat(hw[-1:], target - n,
                                                axis=0)])
-        return hw
+        return hw, n_dev
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         """A host array on the device: from pinned memory, non-blocking,
@@ -511,17 +604,102 @@ class PipelineExecutor:
         event.record(self.stream)
         return _HostRows(buf, event)
 
+    def _release_pins(self, key: tuple) -> None:
+        """Release the eviction pins the compile service took for ``key``
+        (after the key's first dispatch of this run)."""
+        with self._pin_lock:
+            n = self._aot_pins.pop(key, 0)
+        for _ in range(n):
+            pathfinder.unpin_compiled(key)
+
+    def _release_all_pins(self) -> None:
+        with self._pin_lock:
+            pins, self._aot_pins = self._aot_pins, collections.Counter()
+        for key, n in pins.items():
+            for _ in range(n):
+                pathfinder.unpin_compiled(key)
+
+    def _bucket_plan(self, pack: _Pack) -> Dict[int, tuple]:
+        """The pack's (group, eval-point) pairs by canonical bucket:
+        ``{bucket.id: (bucket, items)}``, items ``(group, eval_idx,
+        design_vector, n_rows)``."""
+        buckets: Dict[int, tuple] = {}
+        for g in pack.groups.values():
+            n = len(g.ridx)
+            if not n:
+                continue
+            for e, dv in enumerate(self._design_vectors(g)):
+                buckets.setdefault(dv.bucket.id, (dv.bucket, []))[1] \
+                    .append((g, e, dv, n))
+            for key in g.keys:
+                self._release_pins(("skel", key))
+        return buckets
+
+    def _bucket_args(self, items: List[tuple], didx: np.ndarray,
+                     n_dev: int) -> tuple:
+        """One megabatch's per-row coefficient packs: row ``r`` gathers
+        item ``didx[r]``'s design packs, on the device, with a leading
+        device axis when split over ``n_dev`` devices."""
+        from repro_torch.core import compileahead
+        packs = compileahead.bucket_packs(
+            [dv.packs for _, _, dv, _ in items],
+            self._upload(didx.astype(np.int64)))
+        if n_dev > 1:
+            packs = tuple(p.reshape((n_dev, p.shape[0] // n_dev)
+                                    + p.shape[1:]) for p in packs)
+        return packs
+
     def dispatch(self, pack: _Pack) -> None:
-        """Launch every group's batched evaluation on the executor's
-        stream; the rows stream back into pinned buffers while the caller
-        goes on, until `finalize` folds them."""
+        """Launch the pack's batched evaluation on the executor's stream;
+        the rows stream back into pinned buffers while the caller goes on,
+        until `finalize` folds them.
+
+        With bucketing all (group, eval-point) pairs whose
+        canonical graphs landed in one bucket are one megabatch through
+        the bucket's vmapped graph, each design's packs riding along per
+        row; without it, one dispatch per group."""
+        from repro_torch.core import compileahead
         with self._on_stream(), torch.no_grad():
+            if not self.bucketing:
+                for g in pack.groups.values():
+                    g.n = len(g.ridx)
+                    if not g.n:
+                        continue
+                    hw, n_dev = self._padded(g)
+                    if n_dev > 1:
+                        hw = hw.reshape(n_dev, hw.shape[0] // n_dev,
+                                        pathfinder.HW_DIM)
+                    g.out = self._download(
+                        self._compiled_eval(g, n_dev)(self._upload(hw)))
+                return
             for g in pack.groups.values():
                 g.n = len(g.ridx)
-                if not g.n:
-                    continue
-                out = self._eval_fn(g)(self._upload(self._padded(g)))
-                g.out = self._download(out)
+                if g.n:
+                    g.out = [None] * g.skel.ppd
+            for bucket, items in self._bucket_plan(pack).values():
+                rows = np.concatenate([self._gather(g)
+                                       for g, _, _, _ in items])
+                didx = np.concatenate([np.full(n, j, dtype=np.intp)
+                                       for j, (_, _, _, n)
+                                       in enumerate(items)])
+                n = rows.shape[0]
+                n_dev, target = self._pad_plan(n)
+                if target != n:
+                    rows = np.concatenate(
+                        [rows, np.repeat(rows[-1:], target - n, axis=0)])
+                    didx = np.concatenate(
+                        [didx, np.repeat(didx[-1:], target - n)])
+                if n_dev > 1:
+                    rows = rows.reshape(n_dev, target // n_dev,
+                                        pathfinder.HW_DIM)
+                out = compileahead.batch_entry(bucket, n_dev)(
+                    self._bucket_args(items, didx, n_dev),
+                    self._upload(rows))
+                holder = self._download(out)
+                off = 0
+                for g, e, _, n_g in items:
+                    g.out[e] = (holder, off, off + n_g)
+                    off += n_g
 
     def finalize(self, pack: _Pack) -> List[List[Dict]]:
         """Wait on the pack's device results, fold records per chunk (in
@@ -539,7 +717,14 @@ class PipelineExecutor:
         for g in pack.groups.values():
             if not g.n:
                 continue
-            out = g.out.rows().reshape(-1, g.skel.ppd, n_metrics)[:g.n]
+            if isinstance(g.out, list):
+                # bucketed: one (B, 5) slice per eval point, possibly from
+                # different megabatches, stacked to the (B, ppd, 5) layout
+                out = np.stack([holder.rows()[lo:hi]
+                                for holder, lo, hi in g.out], axis=1)
+            else:
+                out = g.out.rows().reshape(-1, g.skel.ppd,
+                                           n_metrics)[:g.n]
             g.out = None
             if g.skel.mfold is not None:
                 for (ci, li), md in zip(g.slots,
@@ -600,6 +785,27 @@ class PipelineExecutor:
             out_records.append(recs)
         return out_records
 
+    # -- compile-ahead (producer side) -------------------------------------
+    def _prefetch(self, pack: _Pack) -> None:
+        """Hand the pack's designs to the compile service, which traces
+        them into their buckets, so they are ready, or in flight, by the
+        time the device stage reaches this pack; a miss only means the
+        device stage traces inline.  Without bucketing nothing is traced
+        (nor compiled): the per-design functions run as they are."""
+        if not (self.compile_ahead and self.bucketing):
+            return
+        from repro_torch.core import compileahead
+        svc = compileahead.service()
+        for g in pack.groups.values():
+            if not g.ridx:
+                continue
+            for key, ev in zip(g.keys, g.skel.evaluators):
+                if svc.warm_design(("skel", key), ev._host_scalar(g.template),
+                                   (pathfinder.HW_SPEC,), device=self.device,
+                                   trace_key=("skel", key[:-1])):
+                    with self._pin_lock:
+                        self._aot_pins[("skel", key)] += 1
+
     # -- the pipeline -----------------------------------------------------
     def _pack_slices(self, chunks: Sequence) -> List[Sequence]:
         per = max(self.superbatch // max(self.spec.chunk_size, 1), 1)
@@ -607,18 +813,39 @@ class PipelineExecutor:
 
     def _produce(self, slices, pack_q: "queue.Queue",
                  errors: List[BaseException]) -> None:
-        """The producer thread: pack each superbatch into the bounded
-        queue, then the ``None`` sentinel; an error is recorded for the
-        caller's thread to re-raise."""
+        """The producer thread: pack each superbatch and hand its designs
+        to the compile service, keeping ``compile_ahead`` packs in hand
+        beyond the bounded queue, then the ``None`` sentinel; an error is
+        recorded for the caller's thread to re-raise."""
+        buf: "collections.deque" = collections.deque()
         try:
             for sl in slices:
                 if errors:
                     break
-                pack_q.put(self.pack(sl))
+                pack = self.pack(sl)
+                self._prefetch(pack)
+                buf.append(pack)
+                while len(buf) > self.compile_ahead:
+                    pack_q.put(buf.popleft())
+            while buf and not errors:
+                pack_q.put(buf.popleft())
         except BaseException as e:      # noqa: BLE001 — re-raised by caller
             errors.append(e)
         finally:
             pack_q.put(None)
+
+    def _inline_packs(self, slices):
+        """The inline mode's packs in order, each packed (and prefetched)
+        ``compile_ahead`` superbatches before it is handed out."""
+        buf: "collections.deque" = collections.deque()
+        si = 0
+        while si < len(slices) or buf:
+            while si < len(slices) and len(buf) <= self.compile_ahead:
+                nxt = self.pack(slices[si])
+                si += 1
+                self._prefetch(nxt)
+                buf.append(nxt)
+            yield buf.popleft()
 
     def run(self, chunks: Sequence, commit: Callable) -> int:
         """Evaluate ``chunks``, invoking ``commit(chunk, records)`` in
@@ -645,14 +872,16 @@ class PipelineExecutor:
         if not self.threads:
             n_points = 0
             prev: Optional[_Pack] = None
-            for sl in slices:
-                pack = self.pack(sl)
-                self.dispatch(pack)          # pack N on the device ...
+            try:
+                for pack in self._inline_packs(slices):
+                    self.dispatch(pack)          # pack N on the device ...
+                    if prev is not None:
+                        n_points += flush(prev)  # ... while N-1 commits
+                    prev = pack
                 if prev is not None:
-                    n_points += flush(prev)  # ... while N-1 commits
-                prev = pack
-            if prev is not None:
-                n_points += flush(prev)
+                    n_points += flush(prev)
+            finally:
+                self._release_all_pins()
             return n_points
         pack_q: "queue.Queue" = queue.Queue(maxsize=QUEUE_DEPTH)
         write_q: "queue.Queue" = queue.Queue(maxsize=QUEUE_DEPTH)
@@ -702,6 +931,7 @@ class PipelineExecutor:
             write_q.put(None)
             writer.join()
             _join_producer(producer, pack_q)
+            self._release_all_pins()
         if errors:
             raise errors[0]
         return n_points[0]
@@ -759,8 +989,12 @@ class PipelineExecutor:
                         n = len(g.ridx)
                         if not n:
                             continue
-                        hw = self._padded(g)
-                        idx = np.full(hw.shape[0], -1, dtype=np.int32)
+                        hw = self._gather(g)
+                        target = -(-n // self.block) * self.block
+                        if target != n:
+                            hw = np.concatenate([hw, np.repeat(
+                                hw[-1:], target - n, axis=0)])
+                        idx = np.full(target, -1, dtype=np.int32)
                         idx[:n] = g.gidx
                         # the merge runs on the card while the next pack
                         # resolves on host
@@ -773,8 +1007,8 @@ class PipelineExecutor:
                 return state, n_merged
 
             if not self.threads:
-                for sl in self._pack_slices(chunks):
-                    state, n = merge_pack(self.pack(sl), state)
+                for pack in self._inline_packs(self._pack_slices(chunks)):
+                    state, n = merge_pack(pack, state)
                     n_points += n
             else:
                 pack_q: "queue.Queue" = queue.Queue(maxsize=QUEUE_DEPTH)
@@ -804,6 +1038,7 @@ class PipelineExecutor:
                 host = pathfinder.frontier_host(state)
         finally:
             self.cache = cache
+            self._release_all_pins()
 
         records, n_over = self.frontier_records(host, all_chunks)
         return records, n_over, n_points

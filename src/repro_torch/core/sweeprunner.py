@@ -12,10 +12,15 @@ tolerance.  This module scales the batched engine into a *sweep runner*:
     ``auto``; `core/sweeppipeline.py`) overlaps host packing, device work
     and the JSONL commits over superbatches of chunks; ``serial`` scores
     one chunk after another, each one batched `pathfinder.evaluate` call;
-    ``thread`` and ``process`` run chunks in a pool of ``workers``
-    (threads, or processes started with ``spawn``, since CUDA cannot be
-    forked) and commit them as they complete.  Every backend scores on the
-    runner's device — the card unless the caller asks for ``"cpu"``;
+    ``device`` is ``serial`` with each chunk's rows spread over every
+    local device (``shard_devices``); ``thread`` and ``process`` run
+    chunks in a pool of ``workers`` (threads, or processes started with
+    ``spawn``, since CUDA cannot be forked) and commit them as they
+    complete.  Every backend scores on the runner's device — the card
+    unless the caller asks for ``"cpu"`` — and, with ``bucketing`` (asked
+    for; off by default), through the designs' canonical buckets
+    (`core/compileahead.py`), so every backend writes the same records
+    bit for bit;
   * results **stream** to ``results.jsonl`` as chunks complete (plus a CSV
     view via `to_csv`), so a crashed sweep loses at most the in-flight
     chunks;
@@ -31,29 +36,22 @@ tolerance.  This module scales the batched engine into a *sweep runner*:
 A sweep directory is the reference's, byte for byte in its identities:
 the same ``spec.json`` fingerprint, the same chunk hashes and the same
 ``checkpoint.jsonl`` protocol, with ``results.jsonl`` records equal to the
-reference's serial runner with its bucketing off (labels and keys exactly,
-numbers at float32 rounding), and the same ``frontier_state.npz`` layout.
-So a directory one package started resumes in the other, on any backend.
-The device and the backend are execution-only: no part of the spec or its
-fingerprint.
+reference's (labels and keys exactly, numbers at float32 rounding), and
+the same ``frontier_state.npz`` layout.  So a directory one package
+started resumes in the other, on any backend.  The device, the backend,
+``bucketing`` and ``compile_ahead`` are execution-only: no part of the
+spec or its fingerprint.
 
 Workload semantics (training step time vs prefill+decode serving) come from
 the scenario registry in `repro_torch.core.scenarios`.  The CLI front-end
 is ``python -m repro_torch.pathfind sweep [--scenario serving] [--out DIR]
 [--resume] [--backend ...] [--frontier-only]``.
 
-Not ported yet, and where each goes (ROADMAP queue 1):
-
-  * the ``device`` backend (one chunk sharded over several devices):
-    item 9 (b);
-  * ``enable_compilation_cache`` and the compile counters of `RunStats`
-    (``compile_hits``, ``compile_misses``, ``compile_seconds``,
-    ``stall_seconds``), with the runner's ``compile_cache``,
-    ``compile_ahead`` and ``bucketing`` knobs other than their off
-    values: they drive JAX's compiler and the compile-ahead service
-    (item 11 (b)), and nothing here is compiled.  Asking for any of these
-    raises ``NotImplementedError`` or is a ``TypeError``, never a silent
-    no-op.
+`RunStats` carries the run's prediction-cache and compiled-store deltas,
+with the seconds the port's compile (the designs' traces) took and the
+part of them that stalled evaluation.  `enable_compilation_cache` is the
+reference's persistent-cache switch; nothing here is compiled to disk,
+so it is a no-op that says so.
 """
 
 from __future__ import annotations
@@ -396,17 +394,19 @@ def resolve_label(spec: SweepSpec, lb: PointLabel,
         system=mesh_system(lb.mesh))
 
 
-# padding quantum of the pipelined executor's batches: per-skeleton miss
-# counts vary from superbatch to superbatch (cache hits, mixed scenarios),
-# so each batch is padded to a multiple of SHARD_BLOCK rows and a sweep's
-# batches take a handful of shapes
+# padding quantum of the pipelined executor's batches and of the device
+# backend's split rows: per-skeleton miss counts vary from superbatch to
+# superbatch (cache hits, mixed scenarios), so each batch is padded to a
+# multiple of SHARD_BLOCK rows (x devices) and a sweep's batches take a
+# handful of shapes
 SHARD_BLOCK = 8
 
 
 def _eval_labels_impl(spec: SweepSpec, labels: Sequence[PointLabel],
                       cache=pathfinder.DEFAULT_CACHE,
                       shard_devices: bool = False,
-                      device=None) -> List[Dict]:
+                      device=None,
+                      bucketed: Optional[bool] = None) -> List[Dict]:
     """Score one chunk of labels -> result records (one batched call on
     ``device``, the card unless the caller asks for ``"cpu"``).
 
@@ -428,7 +428,8 @@ def _eval_labels_impl(spec: SweepSpec, labels: Sequence[PointLabel],
         dps.append(dp)
         scns.append(scn)
     rows = pathfinder.evaluate(points=points, ppe=ppe, cache=cache,
-                               shard_devices=shard_devices)
+                               shard_devices=shard_devices,
+                               shard_block=SHARD_BLOCK, bucketed=bucketed)
     out = []
     for dp, scn, (lo, hi) in zip(dps, scns, spans):
         rec = scn.record(dp, rows[lo:hi])
@@ -450,14 +451,16 @@ def eval_labels(spec: SweepSpec, labels: Sequence[PointLabel],
 
 
 def _process_eval(spec_dict: Dict, chunk_index: int,
-                  labels: Tuple[PointLabel, ...],
-                  device: str) -> Tuple[int, List[Dict]]:
+                  labels: Tuple[PointLabel, ...], device: str,
+                  bucketed: Optional[bool] = None) -> Tuple[int, List[Dict]]:
     """Worker-process entry of the ``process`` backend.  The chunk's labels
     travel with the task (plain string dataclasses pickle cheaply) —
     re-enumerating the whole cross-product per chunk would cost
-    O(n_chunks x n_points) — and so does the runner's device."""
+    O(n_chunks x n_points) — and so do the runner's device and
+    bucketing."""
     return chunk_index, _eval_labels_impl(SweepSpec.from_dict(spec_dict),
-                                          labels, device=device)
+                                          labels, device=device,
+                                          bucketed=bucketed)
 
 
 # ---------------------------------------------------------------------------
@@ -469,9 +472,16 @@ def _process_eval(spec_dict: Dict, chunk_index: int,
 class RunStats:
     """What one `SweepRunner.run` call did (resume accounting included).
 
-    ``cache_hits``/``cache_misses`` are this run's prediction-cache delta,
-    so cache efficacy is visible per sweep instead of only as
-    process-lifetime totals.  In frontier mode (``frontier_only``)
+    ``cache_hits``/``cache_misses`` are this run's prediction-cache delta
+    and ``compile_hits``/``compile_misses`` the compiled-store delta
+    (`pathfinder.compile_cache_stats`), so cache efficacy is visible per
+    sweep instead of only as process-lifetime totals.
+    ``compile_seconds`` is the wall time this run spent in the port's
+    compile (tracing designs into their buckets, wherever it ran: the
+    compile service's threads or the dispatch path) and
+    ``stall_seconds`` the part that blocked evaluation; a healthy
+    compile-ahead run shows compile_seconds > 0 with stall_seconds near
+    0.  In frontier mode (``frontier_only``)
     ``records`` holds just the surviving Pareto frontier and
     ``n_frontier_overflowed`` counts candidates the bounded
     device-resident state had to drop (0 = the frontier is exact).
@@ -488,6 +498,10 @@ class RunStats:
     records: Optional[List[Dict]] = None
     cache_hits: int = 0
     cache_misses: int = 0
+    compile_hits: int = 0
+    compile_misses: int = 0
+    compile_seconds: float = 0.0
+    stall_seconds: float = 0.0
     frontier_only: bool = False
     n_frontier_overflowed: int = 0
 
@@ -502,20 +516,25 @@ BACKENDS = ("pipeline", "serial", "thread", "process", "device")
 
 def pick_backend(backend: str = "auto") -> str:
     """``auto`` resolves to the pipelined executor, as in the reference: it
-    overlaps host packing, device work and JSONL commits.  The ``device``
-    backend (one chunk sharded over several devices) comes with ROADMAP
-    queue 1 item 9 (b) and raises until then."""
+    overlaps host packing, device work and JSONL commits."""
     if backend == "auto":
         return "pipeline"
-    if backend == "device":
-        raise NotImplementedError(
-            "the 'device' backend (a chunk sharded over several devices) "
-            "is not ported yet (ROADMAP queue 1 item 9 (b)); the pipeline "
-            "backend (the default, 'auto') writes the same records")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected "
                          "pipeline|serial|thread|process|device|auto")
     return backend
+
+
+def enable_compilation_cache(cache_dir: str) -> bool:
+    """The reference's persistent compilation cache (XLA executables
+    serialized under ``cache_dir``, so a cold start or a ``--resume``
+    skips recompiles): nothing in the port is compiled to disk.  Its
+    compile is a design's trace on the host, kept in the process
+    (`core/compileahead.py`); persisting the traces would be the
+    counterpart, and nothing here does it yet.  Returns False: no cache
+    was enabled."""
+    del cache_dir
+    return False
 
 
 class SweepRunner:
@@ -544,8 +563,7 @@ class SweepRunner:
                  compile_ahead: Optional[int] = None,
                  bucketing: Optional[bool] = None, device=None):
         from repro_torch.core import sweeppipeline
-        sweeppipeline.check_knobs(compile_ahead=compile_ahead,
-                                  bucketing=bucketing)
+        sweeppipeline.check_knobs(compile_ahead=compile_ahead)
         self.spec = spec
         self.out_dir = out_dir
         self.backend = pick_backend(backend)
@@ -553,6 +571,9 @@ class SweepRunner:
         # DEFAULT_CACHE sentinel: resolve the live singleton at call time
         self.cache = pathfinder.resolve_cache(cache)
         self.superbatch = superbatch
+        # compile-ahead lookahead depth / cross-design bucketing (None =
+        # module defaults; execution-only knobs — no effect on chunk
+        # hashes, point keys, records, or resume)
         self.compile_ahead = compile_ahead
         self.bucketing = bucketing
         self.device = resolve_device(device)
@@ -571,9 +592,20 @@ class SweepRunner:
         return list(_iter_jsonl(res_path))
 
     # -- execution --------------------------------------------------------
-    def _cache_stats(self) -> Dict[str, int]:
-        return self.cache.stats if self.cache is not None \
+    def _stat_snapshot(self) -> Tuple[Dict, Dict]:
+        cache_stats = self.cache.stats if self.cache is not None \
             else {"hits": 0, "misses": 0}
+        return cache_stats, pathfinder.compile_cache_stats()
+
+    def _stat_delta(self, before: Tuple[Dict, Dict]) -> Dict[str, float]:
+        (c0, k0), (c1, k1) = before, self._stat_snapshot()
+        return {"cache_hits": c1["hits"] - c0["hits"],
+                "cache_misses": c1["misses"] - c0["misses"],
+                "compile_hits": k1["hits"] - k0["hits"],
+                "compile_misses": k1["misses"] - k0["misses"],
+                "compile_seconds": k1["compile_seconds"]
+                - k0["compile_seconds"],
+                "stall_seconds": k1["stall_seconds"] - k0["stall_seconds"]}
 
     def run(self, resume: bool = False, max_chunks: Optional[int] = None,
             collect: bool = True, verbose: bool = False,
@@ -599,7 +631,7 @@ class SweepRunner:
                                       capacity=frontier_capacity,
                                       resume=resume)
         t0 = time.perf_counter()
-        stats0 = self._cache_stats()
+        stats0 = self._stat_snapshot()
         labels = enumerate_labels(self.spec)
         chunks = make_chunks(labels, self.spec.chunk_size)
         done: Dict[int, str] = {}
@@ -658,15 +690,13 @@ class SweepRunner:
                            for r in self.read_results()]
             else:
                 records = memory_rows
-        stats1 = self._cache_stats()
         return RunStats(
             n_points_total=len(labels), n_chunks_total=len(chunks),
             n_chunks_skipped=len(done), n_chunks_evaluated=len(pending),
             n_points_evaluated=n_eval_points,
             elapsed_s=time.perf_counter() - t0, backend=self.backend,
             out_dir=self.out_dir, records=records,
-            cache_hits=stats1["hits"] - stats0["hits"],
-            cache_misses=stats1["misses"] - stats0["misses"])
+            **self._stat_delta(stats0))
 
     def _executor(self):
         from repro_torch.core import sweeppipeline
@@ -704,7 +734,7 @@ class SweepRunner:
         superbatch, so an interrupted frontier sweep resumes with zero
         re-evaluation — in either package."""
         t0 = time.perf_counter()
-        stats0 = self._cache_stats()
+        stats0 = self._stat_snapshot()
         labels = enumerate_labels(self.spec)
         chunks = make_chunks(labels, self.spec.chunk_size)
         state0 = None
@@ -759,16 +789,14 @@ class SweepRunner:
                 for rec in records:
                     fh.write(json.dumps(json_safe(rec)) + "\n")
             os.replace(tmp, front_path)
-        stats1 = self._cache_stats()
         return RunStats(
             n_points_total=len(labels), n_chunks_total=len(chunks),
             n_chunks_skipped=len(done), n_chunks_evaluated=len(pending),
             n_points_evaluated=n_points,
             elapsed_s=time.perf_counter() - t0, backend="pipeline",
             out_dir=self.out_dir, records=records,
-            cache_hits=stats1["hits"] - stats0["hits"],
-            cache_misses=stats1["misses"] - stats0["misses"],
-            frontier_only=True, n_frontier_overflowed=n_over)
+            frontier_only=True, n_frontier_overflowed=n_over,
+            **self._stat_delta(stats0))
 
     def _execute(self, pending: List[Chunk], commit):
         """Score ``pending`` on the runner's backend, committing each chunk
@@ -777,15 +805,19 @@ class SweepRunner:
         spec = self.spec
         if self.backend == "pipeline":
             self._executor().run(pending, commit)
-        elif self.backend == "serial":
+        elif self.backend in ("serial", "device"):
+            # the runner's bucketing goes down with each call (the
+            # reference scopes the process default around the run)
             for c in pending:
-                commit(c, _eval_labels_impl(spec, c.labels,
-                                            cache=self.cache,
-                                            device=self.device))
+                commit(c, _eval_labels_impl(
+                    spec, c.labels, cache=self.cache,
+                    shard_devices=self.backend == "device",
+                    device=self.device, bucketed=self.bucketing))
         elif self.backend == "thread":
             with ThreadPoolExecutor(self.workers) as ex:
                 futs = {ex.submit(_eval_labels_impl, spec, c.labels,
-                                  self.cache, device=self.device): c
+                                  self.cache, device=self.device,
+                                  bucketed=self.bucketing): c
                         for c in pending}
                 for f in as_completed(futs):
                     commit(futs[f], f.result())
@@ -796,7 +828,8 @@ class SweepRunner:
             by_index = {c.index: c for c in pending}
             with ProcessPoolExecutor(self.workers, mp_context=ctx) as ex:
                 futs = [ex.submit(_process_eval, spec_dict, c.index,
-                                  c.labels, str(self.device))
+                                  c.labels, str(self.device),
+                                  self.bucketing)
                         for c in pending]
                 for f in as_completed(futs):
                     idx, records = f.result()

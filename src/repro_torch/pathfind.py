@@ -34,15 +34,22 @@ and a missing card is an error, never a silent fall-back to the host):
           chunk hashes and checkpoint protocol, so either package resumes
           a sweep the other started.  --scenario picks the workload
           (repro_torch.core.scenarios): train, serving, serving-long,
-          serving-traffic.  --backend pipeline (auto), serial, thread or
+          serving-traffic.  --backend pipeline (auto), serial, device
+          (serial, each chunk spread over every local device), thread or
           process (--workers N is the pool size of the last two);
           --frontier-only keeps only the Pareto frontier, carried on the
           card (DIR/frontier.jsonl, resumable from
-          DIR/frontier_state.npz).  The reference's flags whose
-          machinery is not ported yet exit 2 naming their ROADMAP queue 1
-          item: --workers on the pipeline backend (the sweep fabric),
-          --lease-ttl, --compile-ahead, --no-bucketing and
-          --no-compile-cache (item 11), --backend device (item 9 (b)).
+          DIR/frontier_state.npz).  --bucketing scores designs through
+          their canonical buckets (repro_torch.core.compileahead; off by
+          default here, as a fresh process pays a host trace per design;
+          --no-bucketing is the default, as the reference's flag);
+          --compile-ahead N packs N superbatches ahead and, with
+          --bucketing, traces their designs off the critical path
+          (default 2); --no-compile-cache is accepted as in the
+          reference (nothing is compiled to disk here).  The reference's flags whose machinery
+          is not ported yet exit 2 naming their ROADMAP queue 1 item:
+          --workers on the pipeline backend (the sweep fabric) and
+          --lease-ttl (item 11).
 
   size    inverse fleet sizing over a swept serving-traffic design space:
           the minimum device count serving --qps under percentile SLO
@@ -218,12 +225,6 @@ def _add_scenario_flags(p, default_scenario: str = "train") -> None:
 # exits 2 naming its ROADMAP queue 1 item (dest, flag, what, item)
 LATER_SWEEP_FLAGS = (
     ("lease_ttl", "--lease-ttl", "the sweep fabric's chunk leases", 11),
-    ("compile_ahead", "--compile-ahead", "the pipelined executor's "
-     "compile-ahead service", 11),
-    ("no_bucketing", "--no-bucketing", "cross-design bucketing (nothing "
-     "is bucketed here: the records are the reference's with it off)", 11),
-    ("no_compile_cache", "--no-compile-cache", "the persistent compile "
-     "cache (nothing is compiled here)", 11),
 )
 # subcommands of the reference CLI that later slices port
 LATER_COMMANDS = {"explore": 11, "sweep-worker": 11}
@@ -265,8 +266,8 @@ def _parser() -> argparse.ArgumentParser:
                              "process", "device"],
                     help="chunk fan-out: auto = the pipelined executor "
                          "(async double-buffered producer/device/writer "
-                         "pipeline on the card's own stream; device "
-                         "exits 2)")
+                         "pipeline on the card's own stream); device = "
+                         "serial, each chunk spread over every card")
     sw.add_argument("--max-chunks", type=int, default=None,
                     help="stop after N chunks (testing/benchmarks; "
                          "combine with --resume to continue)")
@@ -286,11 +287,24 @@ def _parser() -> argparse.ArgumentParser:
                     help="carried device frontier capacity (default 512; "
                          "overflow is reported, never silent)")
     sw.add_argument("--no-compile-cache", action="store_true",
-                    help="not ported yet (exits 2)")
+                    help="the reference's switch for its on-disk XLA "
+                         "cache; nothing is compiled to disk here, so "
+                         "it changes nothing")
     sw.add_argument("--compile-ahead", type=int, default=None, metavar="N",
-                    help="not ported yet (exits 2)")
-    sw.add_argument("--no-bucketing", action="store_true",
-                    help="not ported yet (exits 2)")
+                    help="superbatches to pack ahead of the device stage "
+                         "on the pipeline backend, their designs traced "
+                         "by the compile service off the critical path "
+                         "(default 2)")
+    bk = sw.add_mutually_exclusive_group()
+    bk.add_argument("--bucketing", action="store_true",
+                    help="cross-design bucketed dispatch: each design "
+                         "traced once on the host, one canonical graph "
+                         "per bucket, records bit for bit equal across "
+                         "backends (execution-only; off by default)")
+    bk.add_argument("--no-bucketing", action="store_true",
+                    help="one vmapped function per design group (the "
+                         "default; records equal to --bucketing's at "
+                         "float32 rounding)")
     _add_device_flag(sw, "the evaluation")
 
     pl = sub.add_parser("plan", help="runtime sharding plan for one point")
@@ -600,6 +614,8 @@ def _cmd_sweep(args) -> int:
                       or args.workers is not None
                       or args.frontier_only or args.superbatch is not None
                       or args.frontier_cap is not None
+                      or args.compile_ahead is not None
+                      or args.no_bucketing or args.bucketing
                       or (args.arch and "all" in args.arch))
     if use_runner:
         return _cmd_sweep_runner(args)
@@ -683,22 +699,42 @@ _AXIS_DEFAULTS = {"arch": None, "cell": None, "mesh": None,
                   "objectives": None}
 
 
+def _validate_dispatch_args(args) -> int:
+    """Reject nonsensical dispatch sizing up front (rc 2) instead of
+    letting a ``--superbatch 0`` surface mid-sweep."""
+    superbatch = getattr(args, "superbatch", None)
+    if superbatch is not None and superbatch <= 0:
+        print(f"error: --superbatch must be a positive number of design "
+              f"points (got {superbatch}); drop the flag for the default "
+              f"(256)", file=sys.stderr)
+        return 2
+    compile_ahead = getattr(args, "compile_ahead", None)
+    if compile_ahead is not None and compile_ahead <= 0:
+        print(f"error: --compile-ahead must be a positive number of "
+              f"superbatches to pre-compile (got {compile_ahead}); drop "
+              f"the flag for the default (2), or use --no-bucketing to "
+              f"fall back to per-group lazy compilation", file=sys.stderr)
+        return 2
+    return 0
+
+
 def _cmd_sweep_runner(args) -> int:
     """Chunked / resumable path (repro_torch.core.sweeprunner)."""
     from repro_torch.core import sweeprunner
 
-    if args.superbatch is not None and args.superbatch <= 0:
-        print(f"error: --superbatch must be a positive number of design "
-              f"points (got {args.superbatch}); drop the flag for the "
-              f"default (256)", file=sys.stderr)
-        return 2
+    rc = _validate_dispatch_args(args)
+    if rc:
+        return rc
     if args.frontier_only and args.pareto:
         print("error: --frontier-only already reduces to the "
               "scenario's Pareto objectives on device; drop --pareto",
               file=sys.stderr)
         return 2
     kwargs = dict(backend=args.backend, workers=args.workers,
-                  superbatch=args.superbatch, device=args.device)
+                  superbatch=args.superbatch, device=args.device,
+                  compile_ahead=args.compile_ahead,
+                  bucketing=True if args.bucketing
+                  else False if args.no_bucketing else None)
     if args.resume:
         if not args.out:
             print("error: --resume requires --out DIR", file=sys.stderr)
@@ -758,7 +794,12 @@ def _cmd_sweep_runner(args) -> int:
           f"({stats.n_points_evaluated} points) in {stats.elapsed_s:.1f}s",
           file=sys.stderr)
     print(f"# cache: prediction {stats.cache_hits} hits / "
-          f"{stats.cache_misses} misses", file=sys.stderr)
+          f"{stats.cache_misses} misses; compiled fns "
+          f"{stats.compile_misses} built / {stats.compile_hits} reused",
+          file=sys.stderr)
+    print(f"# compile: {stats.compile_seconds:.1f}s tracing designs into "
+          f"their buckets, {stats.stall_seconds:.1f}s stalling the eval "
+          f"path (compile-ahead hides the rest)", file=sys.stderr)
     if stats.frontier_only:
         print(f"# frontier: {len(records)} non-dominated points over "
               f"{'/'.join(scn.objectives)}", file=sys.stderr)

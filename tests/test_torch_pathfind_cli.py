@@ -24,9 +24,14 @@ SWEEP_ARGV = ["sweep", "--arch", "qwen1.5-0.5b", "--mesh", "8x8",
 # the flags of the reference's `sweep` whose machinery comes with a later
 # item, with the item each error names (``--workers`` on the default,
 # pipeline backend is the reference's sweep fabric)
-LATER_ARGV = ((["--workers", "2"], 11), (["--lease-ttl", "9"], 11),
-              (["--compile-ahead", "1"], 11), (["--no-bucketing"], 11),
-              (["--no-compile-cache"], 11), (["--backend", "device"], 9))
+LATER_ARGV = ((["--workers", "2"], 11), (["--lease-ttl", "9"], 11))
+# the execution flags of the compile-ahead slice: each runs the sweep,
+# on the chunked runner (whose summary has a compile line) but for
+# --no-compile-cache, which alone the reference leaves to the in-memory
+# sweep
+EXEC_ARGV = (["--compile-ahead", "1"], ["--no-bucketing"],
+             ["--bucketing", "--compile-ahead", "1"],
+             ["--no-compile-cache"], ["--backend", "device"])
 LATER_COMMANDS = ((["explore", "--arch", "qwen1.5-0.5b"], 11),
                   (["sweep-worker", "--dir", "d"], 11))
 UNKNOWN_ARGV = (["--arch", "no-such-arch"], ["--cell", "no_such_cell"],
@@ -100,8 +105,10 @@ def test_plan_prints_what_the_reference_prints(private_ref_cache, capsys):
 def test_runner_flags_exit_2_naming_item_6(capsys):
     """Item 6 (the chunked runner) is ported, and its flags now route there
     (``tests/test_torch_sweep_runner_cli.py``); what still exits 2 is each
-    flag, backend and subcommand of the reference whose machinery comes
-    with a later item, naming that item, before anything is evaluated."""
+    flag and subcommand of the reference whose machinery comes with a
+    later item, naming that item, before anything is evaluated.  The
+    compile-ahead slice's flags run the sweep; ``--compile-ahead 0``
+    exits 2 with the reference's message."""
     for flag, item in LATER_ARGV:
         rc = pathfind.main(SWEEP_ARGV + flag + ["--device", "cpu"])
         err = capsys.readouterr().err
@@ -114,6 +121,16 @@ def test_runner_flags_exit_2_naming_item_6(capsys):
         err = capsys.readouterr().err
         assert rc == 2 and err == (f"error: pathfind {argv[0]} is not ported "
                                    f"yet (ROADMAP queue 1 item {item})\n")
+    for flag in EXEC_ARGV:
+        rc = pathfind.main(SWEEP_ARGV + flag + ["--device", "cpu"])
+        out, err = capsys.readouterr()
+        assert rc == 0 and out.startswith("arch,cell,mesh,"), (flag, err)
+        assert ("# compile: " in err) == (flag[0] != "--no-compile-cache"), \
+            (flag, err)
+    assert pathfind.main(SWEEP_ARGV + ["--compile-ahead", "0", "--device",
+                                       "cpu"]) == 2
+    assert capsys.readouterr().err.startswith(
+        "error: --compile-ahead must be a positive number")
 
 
 def test_unknown_names_and_bad_meshes_exit_2(private_ref_cache, capsys):

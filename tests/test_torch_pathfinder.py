@@ -1,5 +1,5 @@
 """The port's hardware layout, prediction cache and Pareto tools against the
-reference's, on the CPU; and what the port leaves out, raising.
+reference's, on the CPU; the search layer's devices and its misuses.
 
 The evaluator's rows are in ``test_torch_pathfinder_rows.py``, the sweep
 in ``test_torch_pathfinder_sweep.py`` and the CLI in
@@ -141,16 +141,25 @@ def test_pareto_front_and_hypervolume_match_the_reference():
 
 
 def test_what_is_not_ported_raises_naming_its_item():
+    """The search layer's devices work (host shards give the rows of one
+    device) and its misuses raise: mixed modes, a matrix of the wrong
+    width, mixed systolic dims, more cards than the host has."""
     g, st, archs = _toy()
     ev = pathfinder.BatchedEvaluator(g, st, ppe=PPE, cache=None,
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ev.evaluate(archs, shard_devices=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ev.evaluate_matrix(archs[0], pathfinder.pack_hw_many(archs),
-                           devices=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sweeprunner.pick_backend("device")
+    hw = pathfinder.pack_hw_many(archs)
+    one = ev.evaluate_matrix(archs[0], hw, devices=1)
+    np.testing.assert_allclose(ev.evaluate_matrix(archs[0], hw, devices=2),
+                               one, rtol=1e-6)
+    prev = pathfinder.set_host_devices(2)
+    try:
+        np.testing.assert_allclose(ev.evaluate(archs, shard_devices=True),
+                                   one, rtol=1e-6)
+    finally:
+        pathfinder.set_host_devices(prev)
+    assert sweeprunner.pick_backend("device") == "device"
+    with pytest.raises(ValueError, match="this host has"):
+        pathfinder.shard_devices("cuda", torch.cuda.device_count() + 1)
     with pytest.raises(ValueError, match="label mode needs both"):
         pathfinder.evaluate(spec=object())
     with pytest.raises(ValueError, match="label mode's"):

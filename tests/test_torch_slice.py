@@ -229,6 +229,24 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     for backend in ("thread", "process"):
         assert f"  train (golden archs) --backend {backend} --workers " \
             in out
+    for scenario in ("train", "serving", "serving-traffic"):
+        assert f"  {scenario} --bucketing on cpu, from empty caches: " \
+            "serial " in out
+    assert out.count("the bucketed pipeline's records are the bucketed "
+                     "serial's bit for bit") == 3
+    assert out.count(" designs traced into ") == 6
+    assert "buckets on the host (no profile)" in out
+    assert "groups, unbucketed on the host (no profile)" in out
+    for flags, held in (("--bucketing --compile-ahead 2 --no-compile-cache",
+                         "the bucketed pipeline's records bit for bit"),
+                        ("--no-bucketing", "the pipeline's records "),
+                        ("--backend device", "the pipeline's records ")):
+        assert f"  train (golden archs) {flags} on cpu: 16 points in " in out
+        assert held in out
+    assert "  evaluate_matrix(devices=1, block=8) of 4096 rows on cpu: " \
+        in out
+    assert "the host has 0 card(s): the 2-device split was not run" in out
+    assert "# phase 4 (f): " in out
     assert "pathfind soe on cpu: RC-4-1-d16-p1 492.126 ms/iter, 6 " \
         "queries; 3 descents, 9 eq.-6 steps in" in out
     assert "the card's pathfind soe prints the reference's lines\n" in out

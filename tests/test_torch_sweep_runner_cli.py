@@ -24,6 +24,7 @@ import pytest
 from repro import pathfind as ref_pathfind
 from repro.core import pathfinder as ref_pf
 from repro_torch import pathfind
+from repro_torch.core import pathfinder as port_pf
 
 RTOL = 1e-5
 GRID = ["sweep", "--scenario", "serving-traffic", "--arch", "qwen1.5-0.5b",
@@ -39,13 +40,18 @@ PORT_ONLY = ["--device", "cpu", "--backend", "serial"]
 @pytest.fixture
 def private_ref_cache():
     """The reference's process-wide prediction cache swapped for an empty
-    one, and swapped back after the test, untouched."""
+    one, and swapped back after the test, untouched; the port's too, so
+    that its hit counts do not depend on what ran before in the
+    process."""
     prev = ref_pf.prediction_cache()
+    prev_port = port_pf.prediction_cache()
     ref_pf.set_prediction_cache(ref_pf.PredictionCache())
+    port_pf.set_prediction_cache(port_pf.PredictionCache())
     try:
         yield
     finally:
         ref_pf.set_prediction_cache(prev)
+        port_pf.set_prediction_cache(prev_port)
 
 
 _NUM = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]\d+)?")

@@ -286,8 +286,9 @@ def test_frontier_only_is_pareto_records_and_resumes_across_packages(
 def test_stage_failures_and_later_knobs_raise(tmp_path):
     """An error in the producer, on the device stage or in the writer ends
     the run and is raised on the caller's thread, inline and threaded,
-    full and frontier-only; the knobs of later items raise naming them;
-    the card is the default device and is never replaced by the host."""
+    full and frontier-only; the execution knobs take their values and
+    refuse bad ones; the card is the default device and is never replaced
+    by the host."""
     spec = sweeprunner.SweepSpec(**SPECS["train"])
     chunks = sweeprunner.make_chunks(sweeprunner.enumerate_labels(spec),
                                      spec.chunk_size)
@@ -332,18 +333,26 @@ def test_stage_failures_and_later_knobs_raise(tmp_path):
         with pytest.raises(Boom):
             ex.run_frontier(chunks, on_commit=fail_after(lambda *a: None, 0))
 
-    for kw, match in ((dict(devices=2), "item 9"),
-                      (dict(bucketing=True), r"item 11 \(b\)"),
-                      (dict(compile_ahead=2), r"item 11 \(b\)")):
-        with pytest.raises(NotImplementedError, match=match):
-            sweeppipeline.PipelineExecutor(spec, device="cpu", **kw)
-        if "devices" not in kw:
-            with pytest.raises(NotImplementedError, match=match):
-                sweeprunner.SweepRunner(spec, device="cpu", **kw)
-    for kw in (dict(bucketing=False, compile_ahead=0), {}):
-        sweeppipeline.PipelineExecutor(spec, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sweeprunner.SweepRunner(spec, backend="device", device="cpu")
+    # the knobs of the compile-ahead slice take their values (bucketing
+    # off and one device by default); their own checks raise
+    for kw in (dict(devices=2), dict(bucketing=True), dict(compile_ahead=2),
+               dict(bucketing=False, compile_ahead=0), {}):
+        ex = sweeppipeline.PipelineExecutor(spec, device="cpu", **kw)
+        assert ex.devices == kw.get("devices", 1)
+        assert ex.bucketing == kw.get("bucketing", False)
+        assert ex.compile_ahead == kw.get("compile_ahead",
+                                          sweeppipeline.COMPILE_AHEAD)
+        sweeprunner.SweepRunner(spec, device="cpu", **{
+            k: v for k, v in kw.items() if k != "devices"})
+    with pytest.raises(ValueError, match="compile_ahead"):
+        sweeppipeline.PipelineExecutor(spec, device="cpu", compile_ahead=-1)
+    with pytest.raises(ValueError, match="this host has"):
+        sweeppipeline.PipelineExecutor(
+            spec, device="cuda", devices=torch.cuda.device_count() + 1) \
+            if torch.cuda.is_available() else pathfinder.shard_devices(
+                "cuda", 1)
+    assert sweeprunner.SweepRunner(spec, backend="device",
+                                   device="cpu").backend == "device"
     assert sweeprunner.pick_backend("auto") == "pipeline"
     if not torch.cuda.is_available():
         for make in (lambda: sweeppipeline.PipelineExecutor(spec),

@@ -183,7 +183,7 @@ def test_specs_serialize_as_the_references_and_refusals(tmp_path):
     """Fingerprints (the pinned profile-less one, and with a profile,
     params and objectives), from_dict round trips, and what the runner
     refuses: a second run over a checkpointed directory, resume without
-    one, the backends and frontier mode of later items, a missing card."""
+    one, an unknown backend, a missing card."""
     pinned = dict(arches=("qwen1.5-0.5b",), mesh_shapes=((2, 2), (4, 4)),
                   scenario="train", logic_nodes=("N7", "N5"), n_tilings=4,
                   chunk_size=1)
@@ -229,11 +229,9 @@ def test_specs_serialize_as_the_references_and_refusals(tmp_path):
         r["key"] for r in sweeprunner.pareto_records(
             full.records, ("time_s", "devices"))]
     assert sweeprunner.pick_backend("auto") == "pipeline"
-    for backend in ("pipeline", "serial", "thread", "process"):
+    for backend in ("pipeline", "serial", "thread", "process", "device"):
         assert sweeprunner.SweepRunner(spec, backend=backend,
                                        device="cpu").backend == backend
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sweeprunner.SweepRunner(spec, backend="device", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         sweeprunner.pick_backend("gpu")
     if not torch.cuda.is_available():
