@@ -13,7 +13,9 @@ soe|cooptimize``), serving full-width qwen1.5-0.5b
 full width (``Model.prefill`` and ``serve`` of recurrentgemma-2b and
 xlstm-125m), training (``launch.train.train``), the MoE,
 encoder-decoder and LSTM families (qwen2-moe-a2.7b and whisper-large-v3
-at full width), and parallelism (the mesh path over a ``DeviceMesh``):
+at full width), parallelism (the mesh path over a ``DeviceMesh``), and
+the sweep fabric and DeepFlow's surrogate exploration (``pathfind sweep
+--workers N``, ``sweep-worker``, ``explore``):
 
   1. setup     prints the card's name and power limit and builds every
                CUDA kernel of the paths from ``src/repro_torch/kernels/csrc``
@@ -114,9 +116,9 @@ at full width), and parallelism (the mesh path over a ``DeviceMesh``):
                unbucketed ones, the serial records held to (d)'s
                unbucketed serial ones (1e-5) and the golden ones, the
                pipeline's the serial's bit for bit, the bucket and
-               compile counters, one vmapped call and one profiled
-               superbatch bucketed and not (launches, host-to-device
-               copies, idle share), ``pathfind sweep`` with
+               compile counters, one vmapped call and one superbatch
+               bucketed and not (their launch profiles cut for phase
+               10's time), ``pathfind sweep`` with
                ``--bucketing --compile-ahead 2 --no-compile-cache``,
                ``--no-bucketing`` and ``--backend device``, and a matrix
                call over every card (a 2-card split against one card
@@ -126,14 +128,16 @@ at full width), and parallelism (the mesh path over a ``DeviceMesh``):
                seed): ``serve(batch=8, prompt_len=128, gen=32)``, then a
                2048-token prompt forwarded 2047 tokens into a cache and
                stepped once, whose logits must match the last position of
-               a 2048-token forward, and a profiled decode window;
+               a 2048-token forward (the profiled decode window cut for
+               phase 10's time);
   6. recurrent recurrentgemma-2b and xlstm-125m at full width (random
                weights from seed 0), each: ``Model.prefill`` of a batch-2,
                2048-token prompt (timed, and once profiled: the scan's and
                the mLSTM kernels' shares of its device-busy time),
                ``serve(batch=8,
                prompt_len=128, gen=32)``, the same 2047 + 1 against 2048
-               consistency check, and a profiled decode window;
+               consistency check (the profiled decode windows cut for
+               phase 10's time);
   7. train     the kernels' autograd Functions against autograd through
                their plain versions, then ``launch.train.train`` at full
                width (qwen1.5-0.5b with a checkpoint round trip,
@@ -165,10 +169,27 @@ at full width), and parallelism (the mesh path over a ``DeviceMesh``):
                / f32 tree; (c) the ``collective`` microbenchmark at 1
                device; (d) where the host has more than one card, three
                steps of ``torchrun`` training on a 2-rank mesh, else a
-               line saying it has one.
+               line saying it has one;
+ 10. fleet     over phase 4 (d)'s train scenario (FLEET): (a) ``pathfind
+               sweep --workers 2 --out DIR`` on the golden archs, the
+               merged records held to (d)'s pipeline records and the
+               golden ones, with the wall time, points/s and each
+               worker's chunks, compile / stall seconds and start-up
+               (interpreter, torch import, CUDA context) apart from its
+               evaluation; (b) a fleet with one ``post_rows`` SIGKILL and
+               one respawn, and a worker SIGTERM'd in its first
+               superbatch (exit 0, its in-flight chunk committed), each
+               merged to (d)'s records; (c) ``--workers 2
+               --frontier-only`` against phase 4's ``--frontier-only``
+               frontier; (d) ``pathfind explore --out DIR`` at its default
+               budget (the share of the exhaustive frontier found, the
+               points evaluated), the surrogate fitted on card and host
+               from one seed (seconds each, predictions within the CPU
+               test's tolerance), then ``explore --order-dir`` on a fresh
+               fabric directory whose card worker claims in that order.
 
 Every kernel's launch count is zeroed just before phases 3-5, 6, 7 (b)-(e),
-8 and 9 (a), and read just after each; each must have risen by exactly
+8, 9 (a) and 10, and read just after each; each must have risen by exactly
 the count the paths imply.  Any failure exits non-zero.  The last
 two lines of standard output are a JSON line of kernel results and the
 device line ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line
@@ -523,8 +544,8 @@ NEAR_TIE = 1 / 16
 # of ``launch.train.train`` at ``train`` (batch, frames) with decoder_len
 # tokens, one more timed and one profiled.  Their profiled decode windows
 # (last read: qwen2-moe idle 0.674-0.766 at ~3,570 launches a step,
-# whisper 0.908-0.938; PERF.md) were cut for phase 4 (f)'s time; phases 5
-# and 6 keep theirs.
+# whisper 0.908-0.938; PERF.md) were cut for phase 4 (f)'s time, phases 5
+# and 6's for phase 10's.
 FAMILIES = dict(
     moe=dict(arch="qwen2-moe-a2.7b", prefill=(2, 2048), check_len=2048,
              check_capacity=8.0),
@@ -1278,7 +1299,8 @@ def phase_search(device, search: dict) -> None:
             _device_profile(lambda: pathfinder.evaluate(
                 template=hw[device.type][0], matrix=matrix[:rows],
                 graph=graph, strategy=strategy, system=system, ppe=ppe,
-                cache=None), 1, f"matrix call of {rows} rows")
+                cache=None), 1, f"matrix call of {rows} rows",
+                host_ops=False)
 
     k = search["eager_rows"]
     for dev in devices:
@@ -1438,7 +1460,7 @@ def phase_runner(device, runner: dict, workdir: Path,
                             device=device)
         _device_profile(lambda: pathfinder.evaluate(
             spec=spec, labels=chunk.labels, cache=None, device=device), 1,
-            f"runner chunk of {len(chunk.labels)} designs")
+            f"runner chunk of {len(chunk.labels)} designs", host_ops=False)
 
     # 2. every scenario, uncalibrated: card against host, and the records
     #    of the golden archs against the reference's own
@@ -1634,32 +1656,6 @@ def _compile_line(err: str) -> str:
     return f"compile {m.group(1)} s, stall {m.group(2)} s"
 
 
-def _launch_profile(fn, what: str) -> dict:
-    """``fn()`` once under torch.profiler: prints and returns its device
-    launches, host-to-device copies, device-busy ms and idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if "CUDA" in str(getattr(e, "device_type", ""))]
-    busy = sum(e.self_device_time_total for e in dev) * 1e-6
-    out = dict(launches=sum(e.count for e in dev),
-               h2d=sum(e.count for e in dev if "HtoD" in e.key),
-               busy_ms=busy * 1e3, wall_ms=wall * 1e3,
-               idle=1 - busy / wall if busy else None)
-    print(f"  profiled {what}: wall {out['wall_ms']:.3f} ms (profiler on), "
-          f"device busy {out['busy_ms']:.3f} ms, idle share "
-          + (f"{out['idle']:.3f}" if busy else "not measured")
-          + f", {out['launches']} launches, {out['h2d']} host-to-device "
-          f"copies")
-    return out
-
-
 def _skeleton_rows(device, n: int):
     """(c)'s skeleton (qwen1.5-0.5b x train_4k x 16x16, its first
     strategy) as an evaluator on ``device``, the template, and ``n``
@@ -1690,6 +1686,7 @@ def phase_bucketed(device, runner: dict, workdir: Path,
     """Phase 4 (f): the bucketed search on ``device`` (see the module
     docstring), over (d)'s directories in ``workdir``; ``rates`` are (d)'s
     unbucketed points/s, per place."""
+    import numpy as np
     from repro_torch.core import compileahead, sweeppipeline, sweeprunner
     card = card_line() if device.type == "cuda" else "host rehearsal"
     dev = str(device)
@@ -1743,15 +1740,15 @@ def phase_bucketed(device, runner: dict, workdir: Path,
 
     # (ii) one vmapped call of (c)'s skeleton over 84 rows (one design's
     # techlib points), and one superbatch of two chunks, each bucketed and
-    # not, profiled
+    # not (their launch profiles were cut for phase 10's time; PERF.md
+    # keeps their last numbers)
     ev, template, rows = _skeleton_rows(device, 84)
     for bucketing in (True, False):
         fn = ev._compiled(template, bucketed=bucketing)
-        ev._rows(fn, rows)
-        if device.type == "cuda":
-            _launch_profile(lambda: ev._rows(fn, rows), "vmapped call of "
-                            "84 rows of (c)'s skeleton, " + (
-                                "bucketed" if bucketing else "unbucketed"))
+        assert np.isfinite(ev._rows(fn, rows)).all()
+        print(f"  vmapped call of 84 rows of (c)'s skeleton, "
+              f"{'bucketed' if bucketing else 'unbucketed'}, on "
+              f"{device.type}: finite rows")
     spec, _ = sweeprunner.load_sweep(str(workdir / "train-card"))
     chunks = sweeprunner.make_chunks(sweeprunner.enumerate_labels(spec),
                                      spec.chunk_size)
@@ -1761,19 +1758,14 @@ def phase_bucketed(device, runner: dict, workdir: Path,
             bucketing=bucketing, device=device)
         pack = ex.pack(ex._pack_slices(chunks)[0])
 
-        def superbatch():
-            ex.dispatch(pack)
-            return ex.finalize(pack)
-        superbatch()
+        ex.dispatch(pack)
+        recs = ex.finalize(pack)
         n = sum(len(c.labels) for c in pack.chunks)
-        what = f"pipeline superbatch of {n} designs, " + (
+        assert sum(len(r) for r in recs) == n
+        print(f"  pipeline superbatch of {n} designs, " + (
             f"{len(ex._bucket_plan(pack))} buckets" if bucketing
             else f"{len(pack.groups)} groups, unbucketed")
-        if device.type == "cuda":
-            _launch_profile(superbatch, what)
-        else:
-            superbatch()
-            print(f"  {what} on the host (no profile)")
+            + f" on {device.type}: {n} records")
 
     t2 = time.perf_counter()
     print(f"  # (ii) {t2 - t1:.2f}s")
@@ -2116,7 +2108,7 @@ def phase_deepflow(device, deepflow: dict, runner_dir: Path) -> None:
                                proj)
             step()
             _device_profile(step, 1, f"eq.-6 step of {what}, "
-                            f"{W.shape[0]} starts")
+                            f"{W.shape[0]} starts", host_ops=False)
     print(f"# phase 4 (e): {time.perf_counter() - t_start:.2f}s")
 
 
@@ -2270,16 +2262,15 @@ def phase_serve(device, serve_kw: dict, check_len: int) -> int:
     model = build_model(cfg, device)
     params = model.init(1)
     _consistency(model, params, device, check_len)
-    prof_steps = _profile_decode(model, params, serve_kw, device)
     steps = serve_kw["prompt_len"] + serve_kw["gen"]
-    # serve, then forward + step + forward, then the profiled steps
-    return cfg.n_layers * (steps + 3 + prof_steps)
+    # serve, then forward + step + forward
+    return cfg.n_layers * (steps + 3)
 
 
 def phase_recurrent(device, rec: dict) -> dict:
     """recurrentgemma-2b and xlstm-125m (``rec["archs"]``) through
-    ``Model.prefill`` (timed), ``serve``, the prefill/decode consistency
-    check and a profiled decode window.  Returns the launches per kernel
+    ``Model.prefill`` (timed), ``serve`` and the prefill/decode
+    consistency check.  Returns the launches per kernel
     this phase must have made."""
     import numpy as np
     import torch
@@ -2346,7 +2337,6 @@ def phase_recurrent(device, rec: dict) -> dict:
                          rec["check_len"])
         else:
             _consistency(model, params, device, rec["check_len"])
-        prof_steps = _profile_decode(model, params, serve_kw, device)
         del params, caches
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -2355,8 +2345,8 @@ def phase_recurrent(device, rec: dict) -> dict:
         if device.type == "cuda":
             torch.cuda.empty_cache()
         print(f"# phase 6 {cfg.name}: {time.perf_counter() - t0:.2f}s")
-        # decode steps: serve's, the check's one and the profiled ones
-        steps = (serve_kw["prompt_len"] + serve_kw["gen"] + 1 + prof_steps)
+        # decode steps: serve's and the check's one
+        steps = serve_kw["prompt_len"] + serve_kw["gen"] + 1
         expected["rglru_scan"] += forwards * kinds["rglru"]
         expected["mlstm_parallel"] += forwards * kinds["mlstm"] + layer_checks
         expected["flash_attention"] += (forwards + steps) * kinds["attn"]
@@ -3242,8 +3232,8 @@ def phase_moe(device, fam: dict) -> int:
     the prefill-vs-decode check at capacity ``check_capacity`` (no drops:
     at the config's 1.25 a 2048-token forward drops its latest tokens in
     overflowing experts, which a decode step never does), the first MoE
-    layer against a dense computation, and a profiled decode window.
-    Returns the flash-attention launches it must have made."""
+    layer against a dense computation.  Returns the flash-attention
+    launches it must have made."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config, reduced
@@ -3304,9 +3294,9 @@ def phase_moe(device, fam: dict) -> int:
 def phase_whisper(device, fam: dict) -> int:
     """Phase 8 (c): whisper-large-v3 through ``Model.prefill`` of frame
     embeddings (the encoder and each layer's cross K/V), decode steps from
-    that cache against a forward of the same frames and tokens, a profiled
-    decode window, ``serve``, and ``launch.train.train`` with a profiled
-    step.  Returns the flash-attention launches it must have made."""
+    that cache against a forward of the same frames and tokens,
+    ``serve``, and ``launch.train.train`` with a profiled step.  Returns
+    the flash-attention launches it must have made."""
     import numpy as np
     import torch
     from repro_torch import optim
@@ -3411,17 +3401,24 @@ def phase_whisper(device, fam: dict) -> int:
             + train_steps * _attention_calls(cfg, "forward"))
 
 
-def _device_profile(fn, n: int, what: str):
-    """``fn()`` under torch.profiler (CPU + CUDA): prints wall time and
-    device-busy time per each of its ``n`` units of ``what``, the idle
-    share and the kernels by device time.  Returns the device-busy us, the
-    device us per kernel name and, per ``repro_torch::`` range (the kernel
-    Functions' backwards), [device us of its kernels, ranges], or None
-    where the profiler recorded no device time."""
+def _device_profile(fn, n: int, what: str, host_ops: bool = True):
+    """``fn()`` under torch.profiler (CPU + CUDA; CUDA alone where
+    ``host_ops`` is False): prints wall time and device-busy time per each
+    of its ``n`` units of ``what``, the idle share, the kernels by device
+    time and the seconds the profile took in all.  Returns the device-busy
+    us, the device us per kernel name and, per ``repro_torch::`` range (the
+    kernel Functions' backwards, recorded only with ``host_ops``), [device
+    us of its kernels, ranges], or None where the profiler recorded no
+    device time.  Without host ops the profiler records the kernels and
+    their launches but not the tens of thousands of host ops of a vmapped
+    search call, whose processing is most of such a profile's seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_all = time.perf_counter()
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3448,9 +3445,11 @@ def _device_profile(fn, n: int, what: str):
         return None
     launches = sum(e.count for e in kernels)
     print(f"  profiled {what}: wall {wall / n * 1e3:.3f} ms each (profiler "
-          f"on), device busy {busy_us / n / 1e3:.3f} ms each, idle share "
+          f"on{'' if host_ops else ', device activity only'}), device busy "
+          f"{busy_us / n / 1e3:.3f} ms each, idle share "
           f"{1 - busy_us * 1e-6 / wall:.3f}, {launches / n:.1f} kernel "
-          f"launches each under {len(kernels)} names")
+          f"launches each under {len(kernels)} names (profile "
+          f"{time.perf_counter() - t_all:.2f} s in all)")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the eight largest, then the port's own kernels below them
     for e in ranked[:8] + [e for e in ranked[8:] if any(
@@ -3460,23 +3459,6 @@ def _device_profile(fn, n: int, what: str):
               f"{e.count / n:6.1f} launches  {e.key[:90]}")
     return busy_us, {e.key: e.self_device_time_total for e in kernels}, \
         spans
-
-
-def _profile_decode(model, params, serve_kw: dict, device,
-                    prompt_len: int = 4, gen: int = 8) -> int:
-    """Where a serving step's time goes: ``generate`` at the serve batch
-    over a short prompt, profiled.  Returns the decode steps it ran."""
-    import numpy as np
-    from repro_torch.launch.serve import generate
-    prompts = np.random.default_rng(2).integers(
-        0, model.cfg.vocab_size, (serve_kw["batch"], prompt_len))
-    n = prompt_len + gen
-    if device.type != "cuda":
-        generate(model, params, prompts, gen)
-    else:
-        _device_profile(lambda: generate(model, params, prompts, gen), n,
-                        f"{n} decode steps at batch {serve_kw['batch']}")
-    return n
 
 
 PARALLEL = dict(steps=3, collective_bytes=(1 << 20, 1 << 26), reps=5)
@@ -3621,6 +3603,280 @@ def phase_parallel(device, train: dict, phase7: dict,
     return launched
 
 
+# phase 10, the fleet and the surrogate: ``pathfind sweep --workers 2`` over
+# phase 4 (d)'s train scenario on the golden archs (one chunk a claim); a
+# fleet with one ``post_rows`` kill and one respawn, and a worker SIGTERM'd
+# in its first superbatch, both over the golden archs in chunks of
+# ``chunk_size`` under a short lease TTL; ``--workers 2 --frontier-only``
+# over (d)'s axes; ``pathfind explore`` at its default budget over (d)'s
+# train axes in chunks of 2 (over the golden archs' 16 points the default
+# budget, 4, is under the surrogate's training floor of 8 rows, so no fit
+# would run); the surrogate fitted on card and host, held within the
+# tolerance the CPU test holds the port to the reference with
+# (``surrogate.FIT_RTOL`` / ``FIT_ATOL``); ``explore --order-dir`` and a
+# card worker claiming in that order
+FLEET = dict(workers=2, superbatch=8, ttl=4.0, chunk_size=2,
+             kill="post_rows:2", sigterm_delay=1.0, frontier_superbatch=32,
+             explore=("--chunk-size", "2"))
+
+
+def _fleet_stats(d: Path) -> list:
+    """Every worker incarnation's stats journal of a fabric directory;
+    fails if a chunk was evaluated after any incarnation committed it."""
+    stats = [json.loads(p.read_text())
+             for p in sorted((d / "workers").glob("stats.*.json"))]
+    first = {}
+    for st in stats:
+        for c, t in st["committed"]:
+            first[c] = min(t, first.get(c, math.inf))
+    for st in stats:
+        for c, t in st["evaluated"]:
+            assert t <= first.get(c, math.inf), \
+                f"{d.name}: chunk {c} evaluated again by {st['worker']}"
+    return stats
+
+
+def _fleet_held(got: list, want: dict, what: str) -> str:
+    """``got`` records held to ``want``'s of the same keys bit for bit: one
+    card, the same batched code, whichever process and superbatch scored
+    them (within SEARCH_RTOL first, so that a miss names its field)."""
+    mine = [want[r["key"]] for r in got]
+    _held_records(got, mine, what)
+    assert got == mine, f"{what}: not bit for bit"
+    return "bit for bit"
+
+
+def _run_worker(worker):
+    """An in-process fabric worker's run, this process's SIGTERM handler
+    put back after it."""
+    import signal
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        return worker.run()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
+def phase_fleet(device, runner: dict, workdir: Path,
+                fleet: dict = FLEET) -> None:
+    """Phase 10 (see FLEET and the module docstring), over phase 4 (d)'s
+    directories in ``workdir``."""
+    import signal
+
+    import numpy as np
+    import torch
+    from repro_torch.core import surrogate, sweepfabric, sweeprunner
+    card = card_line() if device.type == "cuda" else "host rehearsal"
+    dev = str(device)
+    print(f"== phase 10: the fleet and the surrogate on {device.type}")
+    golden = dict(runner, arches=runner["golden_arches"])
+    want = {r["key"]: r for r in _by_chunk(workdir / "train-card"
+                                             / "results.jsonl")}
+    gold = [r for r in _jsonl(GOLDEN_RUNNER) if r.pop("scenario") == "train"]
+    root = workdir / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    laps = _Laps()
+
+    # (a) pathfind sweep --workers N --out DIR
+    d = root / "fleet"
+    _, _, err, dt = _cli(runner_argv("train", golden) + [
+        "--out", d, "--device", dev, "--workers", fleet["workers"],
+        "--superbatch", fleet["superbatch"]])
+    m = re.search(r"# sweep\[train\] fabric: (\d+) points in (\d+) chunks "
+                  r"across (\d+) workers; (\d+) committed", err)
+    assert m and m.group(2) == m.group(4), err
+    got = _by_chunk(d / "results.jsonl")
+    held = _fleet_held(got, want, "fleet against (d)'s pipeline")
+    by_key = {r["key"]: r for r in got}
+    _held_records([by_key[r["key"]] for r in gold], gold,
+                  "fleet against the reference's golden")
+    print(f"  (a) pathfind sweep --workers {fleet['workers']} --out DIR "
+          f"(train, golden archs): {m.group(1)} points in {m.group(2)} "
+          f"chunks, {dt:.3f}s wall = {int(m.group(1)) / dt:.1f} points/s; "
+          f"(d)'s pipeline records {held}, {len(gold)} golden records "
+          f"within {SEARCH_RTOL:g}  [{card}]")
+    for st in _fleet_stats(d):
+        print(f"    worker {st['worker']}: {st['n_chunks_committed']} "
+              f"chunks ({st['n_points']} points); start-up "
+              f"{st['startup_s']:.3f}s (interpreter, torch import, device "
+              f"context), evaluation {st['elapsed_s']:.3f}s; compile "
+              f"{st['compile_seconds']:.3f}s, stall "
+              f"{st['stall_seconds']:.3f}s")
+    laps.lap("(a)")
+
+    # (b) one post_rows kill and one respawn; one SIGTERM, its worker
+    # starting up beside the killed fleet (a watcher thread signals it once
+    # its first superbatch's leases are taken)
+    import threading
+    spec, _ = sweepfabric.load_dir(str(d))
+    small = dataclasses.replace(spec, chunk_size=fleet["chunk_size"])
+    n_chunks = len(sweeprunner.make_chunks(
+        sweeprunner.enumerate_labels(small), small.chunk_size))
+    sd = root / "sigterm"
+    sweepfabric.init_dir(small, str(sd))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH", ""))
+        if p))
+    victim = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.pathfind", "sweep-worker",
+         "--dir", str(sd), "--device", dev, "--claim-batch",
+         str(n_chunks), "--superbatch", str(2 * fleet["chunk_size"]),
+         "--eval-delay", str(fleet["sigterm_delay"])], env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    signalled = threading.Event()
+
+    def sigterm_once_claimed():
+        deadline = time.time() + 180
+        while victim.poll() is None and time.time() < deadline:
+            if list((sd / "leases").glob("chunk_*.json")):
+                victim.send_signal(signal.SIGTERM)
+                signalled.set()
+                return
+            time.sleep(0.05)
+
+    watcher = threading.Thread(target=sigterm_once_claimed, daemon=True)
+    watcher.start()
+    token = root / "kill.token"
+    kd = root / "kill"
+    try:
+        t0 = time.perf_counter()
+        stats = sweepfabric.FabricCoordinator(
+            small, str(kd), workers=fleet["workers"], ttl_s=fleet["ttl"],
+            poll_s=0.2, superbatch=fleet["chunk_size"], max_respawns=1,
+            worker_env={"REPRO_FABRIC_KILL": f"{fleet['kill']}:{token}"},
+            device=device).run()
+        dt = time.perf_counter() - t0
+        _, verr = victim.communicate(timeout=180)
+    finally:
+        if victim.poll() is None:
+            victim.kill()
+            victim.wait()
+        watcher.join()
+    exits = sorted(stats.n_worker_exits.values())
+    assert stats.complete and token.is_file(), (stats, exits)
+    assert -signal.SIGKILL in exits, exits
+    incarnations = _fleet_stats(kd)
+    assert len(incarnations) == fleet["workers"] + 1, incarnations
+    held = _fleet_held(_by_chunk(kd / "results.jsonl"), want,
+                       "killed fleet against (d)'s pipeline")
+    print(f"  (b) a fleet of {fleet['workers']} over {n_chunks} chunks, "
+          f"one SIGKILL'd at {fleet['kill']} (exit codes {exits}) and one "
+          f"respawn: {len(incarnations)} incarnations, no committed chunk "
+          f"evaluated again, {dt:.3f}s; (d)'s records {held}  [{card}]")
+
+    assert signalled.is_set() and victim.returncode == 0, verr[-2000:]
+    st = _fleet_stats(sd)[0]
+    committed = {c for c, _ in st["committed"]}
+    assert st["preempted"] and 1 <= len(committed) < n_chunks, st
+    probe = sweepfabric.LeaseManager(str(sd), "probe")
+    assert all(probe.holder(i) != st["worker"]
+               for i in range(n_chunks) if i not in committed), \
+        "the preempted worker kept a lease of an unfinished chunk"
+    rest = _run_worker(sweepfabric.FabricWorker(
+        str(sd), poll_s=0.2, device=device))
+    assert rest.n_chunks_committed == n_chunks - len(committed)
+    _fleet_stats(sd)
+    held = _fleet_held(sweepfabric.merge_results(str(sd))[0], want,
+                       "SIGTERM'd fleet against (d)'s pipeline")
+    print(f"  (b) a worker SIGTERM'd in its first superbatch: exit 0, "
+          f"{len(committed)} in-flight chunk(s) committed, its other "
+          f"leases released; a second worker finished the other "
+          f"{rest.n_chunks_committed}; (d)'s records {held}  [{card}]")
+    laps.lap("(b)")
+
+    # (c) --workers N --frontier-only against phase 4's frontier
+    fd = root / "frontier"
+    _, _, err, dt = _cli(runner_argv("train", runner) + [
+        "--out", fd, "--device", dev, "--workers", fleet["workers"],
+        "--frontier-only", "--superbatch", fleet["frontier_superbatch"]])
+    assert "# frontier: " in err and "committed in" in err, err
+    got = sorted(_jsonl(fd / "frontier.jsonl"), key=lambda r: r["key"])
+    front = sorted(_jsonl(workdir / "train-frontier" / "frontier.jsonl"),
+                   key=lambda r: r["key"])
+    assert [r["key"] for r in got] == [r["key"] for r in front]
+    _fleet_stats(fd)
+    held = _fleet_held(got, {r["key"]: r for r in front},
+                       "fleet frontier against phase 4's")
+    print(f"  (c) --workers {fleet['workers']} --frontier-only (train, "
+          f"(d)'s axes): {len(got)} frontier records in {dt:.3f}s, phase "
+          f"4's --frontier-only frontier {held}  [{card}]")
+    laps.lap("(c)")
+
+    # (d) pathfind explore at its default budget; the fit, card and host;
+    # explore --order-dir and a worker claiming in that order
+    ed = root / "explore"
+    _, _, err, dt = _cli(["explore", *runner_argv("train", runner)[1:],
+                          *fleet["explore"], "--out", ed, "--device", dev])
+    m = re.search(r"evaluated (\d+)/(\d+) points .* over (\d+) rounds in "
+                  r"[\d.]+s; stop=(\w+)", err)
+    assert m, err
+    espec, recs = sweeprunner.load_sweep(str(ed))
+    objectives = espec.scenario_spec.variants()[0].resolve().objectives
+    _, full = sweeprunner.load_sweep(str(workdir / "train-card"))
+    exhaustive = {r["key"] for r in sweeprunner.pareto_records(
+        full, objectives)}
+    found = {r["key"] for r in sweeprunner.pareto_records(
+        recs, objectives)} & exhaustive
+    held = _fleet_held(recs, want, "explore's records against (d)'s")
+    assert int(m.group(1)) == len(recs) and int(m.group(3)) >= 1, err
+    print(f"  (d) pathfind explore --out DIR {' '.join(fleet['explore'])} "
+          f"(train, (d)'s axes): evaluated {m.group(1)}/{m.group(2)} "
+          f"points over {m.group(3)} rounds in {dt:.3f}s, stop="
+          f"{m.group(4)}; {len(found)}/{len(exhaustive)} = "
+          f"{len(found) / len(exhaustive):.3f} of the exhaustive frontier "
+          f"found; its records (d)'s {held}  [{card}]")
+    labels = sweeprunner.enumerate_labels(espec)
+    X = surrogate.Featurizer.from_spec(espec, labels, device="cpu") \
+        .transform(espec, labels, "cpu")
+    fits = {}
+    for where, on in (("card", device), ("host", torch.device("cpu"))):
+        fz = surrogate.Featurizer.from_spec(espec, labels, device=on)
+        t0 = time.perf_counter()
+        model = surrogate.fit_surrogate(espec, recs, featurizer=fz,
+                                        device=on)
+        fits[where] = (time.perf_counter() - t0, model)
+    worst = 0.0
+    for a, b, scale in zip(surrogate.predict(fits["card"][1], X),
+                           surrogate.predict(fits["host"][1], X),
+                           (fits["host"][1].y_std, fits["host"][1].y_std,
+                            1.0)):
+        tol = surrogate.FIT_RTOL * np.abs(b) + \
+            surrogate.FIT_ATOL * np.asarray(scale)
+        worst = max(worst, float(np.max(np.abs(a - b) / tol)))
+    assert worst <= 1.0, f"card fit off the host's: {worst:.3f} of the " \
+        f"tolerance"
+    print(f"  (d) the surrogate's fit on {len(recs)} records ("
+          f"SurrogateConfig defaults): {device.type} {fits['card'][0]:.3f}s,"
+          f" host {fits['host'][0]:.3f}s; {device.type} members stopped at "
+          f"{fits['card'][1].stop_steps}, host at "
+          f"{fits['host'][1].stop_steps}; predictions within "
+          f"{worst:.3f} of the tolerance (rtol "
+          f"{surrogate.FIT_RTOL:g}, atol {surrogate.FIT_ATOL:g} "
+          f"standardized)  [{card}]")
+
+    od = root / "ordered"
+    sweepfabric.init_dir(small, str(od))
+    _, _, err, _ = _cli(["explore", "--order-dir", od, "--train-from", ed,
+                         "--device", dev])
+    order = sweepfabric.load_chunk_order(str(od), small.fingerprint(),
+                                         n_chunks)
+    assert order and "# explore: wrote advisory order" in err, err
+    worker = sweepfabric.FabricWorker(str(od), claim_batch=1, poll_s=0.2,
+                                      device=device)
+    _run_worker(worker)
+    claimed = [c for c, _ in _fleet_stats(od)[0]["committed"]]
+    assert claimed == order, (claimed, order)
+    held = _fleet_held(sweepfabric.merge_results(str(od))[0], want,
+                       "ordered fleet against (d)'s pipeline")
+    print(f"  (d) explore --order-dir on a fresh fabric directory ("
+          f"{n_chunks} chunks): order {order}; its {device.type} worker "
+          f"claimed and committed in that order; (d)'s records {held}  "
+          f"[{card}]")
+    laps.lap("(d)")
+    print(laps.line("phase 10"))
+
+
 def _row(name: str, launches: int, res: dict) -> dict:
     row = {"name": name, **KERNELS[name], "launches": launches,
            "max_abs_err": res["max_abs_err"]}
@@ -3686,8 +3942,8 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
         starts: int = 2, search: dict = SEARCH,
         runner: dict = RUNNER, deepflow: dict = DEEPFLOW,
         train: dict = TRAIN, families: dict = FAMILIES,
-        parallel: dict = PARALLEL) -> list:
-    """Phases 2-9; returns the per-kernel result objects.  ``cases`` maps
+        parallel: dict = PARALLEL, fleet: dict = FLEET) -> list:
+    """Phases 2-10; returns the per-kernel result objects.  ``cases`` maps
     each kernel to its (compared, timed) cases.  ``steps`` x ``starts`` is
     the fit's depth, cut from 80 x 6 since the suite's nine model-step
     points of three archs made each of its evaluations ~5x costlier on
@@ -3758,6 +4014,12 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
             "flash_attention"
     # this slice's path: the mesh (phase 9 (a) counts its own launches)
     meshed = phase_parallel(device, train, phase7, parallel)
+    # this slice's path: the fleet and the surrogate (no kernel on it)
+    t9 = time.perf_counter()
+    mods = _reset_launches()
+    phase_fleet(device, runner, runner_dir, fleet)
+    print(f"# phase 10: {time.perf_counter() - t9:.2f}s")
+    _check_launches(mods, {}, device, "phase 10")
     return [_row(name, launches[name] + more[name] + trained[name]
                  + fam[name] + meshed[name], results[name])
             for name in KERNELS]

@@ -46,10 +46,36 @@ and a missing card is an error, never a silent fall-back to the host):
           --compile-ahead N packs N superbatches ahead and, with
           --bucketing, traces their designs off the critical path
           (default 2); --no-compile-cache is accepted as in the
-          reference (nothing is compiled to disk here).  The reference's flags whose machinery
-          is not ported yet exit 2 naming their ROADMAP queue 1 item:
-          --workers on the pipeline backend (the sweep fabric) and
-          --lease-ttl (item 11).
+          reference (nothing is compiled to disk here).
+
+          --workers N on the pipeline (auto) backend is the distributed
+          sweep fabric (repro_torch.core.sweepfabric): --out DIR becomes
+          the shared coordination directory, N local `sweep-worker`
+          processes (each on --device) claim chunk leases (--lease-ttl
+          S, default 30) and the coordinator merges their shards into
+          the single-host layout; --workers 0 initializes DIR and waits
+          for an external fleet:
+
+              PYTHONPATH=src python -m repro_torch.pathfind sweep \
+                  --arch qwen1.5-0.5b --mesh 8x8 --logic N7,N5 \
+                  --workers 2 --out sweeps/fleet
+
+  sweep-worker  join a fabric directory (of either package) as a
+          lease-claiming, preemptible worker: SIGTERM commits the
+          in-flight chunk and exits 0:
+
+              PYTHONPATH=src python -m repro_torch.pathfind sweep-worker \
+                  --dir sweeps/fleet
+
+  explore surrogate-driven exploration (repro_torch.core.surrogate): fit
+          an MLP ensemble on the card, rank chunks by acquisition, and
+          spend a real-evaluation budget on the best instead of the full
+          cross-product; --order-dir DIR writes a fabric directory's
+          advisory claim order instead:
+
+              PYTHONPATH=src python -m repro_torch.pathfind explore \
+                  --arch qwen1.5-0.5b --mesh 8x8 --mesh 16x16 \
+                  --logic N7,N5,N3 --out sweeps/explore
 
   size    inverse fleet sizing over a swept serving-traffic design space:
           the minimum device count serving --qps under percentile SLO
@@ -102,9 +128,8 @@ and a missing card is an error, never a silent fall-back to the host):
 Every file written here is in the reference's format, so the reference's
 ``python -m repro.pathfind sweep --profile DIR/profile.json`` consumes a
 profile fitted on the card, and each package's cooptimize refines the
-other's sweep directory.  The reference's other subcommands exit 2 naming
-the ROADMAP queue 1 item that ports them: explore and sweep-worker (item
-11).
+other's sweep directory, and each package's workers join the other's
+fabric directories.
 """
 
 from __future__ import annotations
@@ -221,15 +246,6 @@ def _add_scenario_flags(p, default_scenario: str = "train") -> None:
                         "measurement-anchored MicroArch")
 
 
-# flags of the reference's `sweep` whose machinery is not ported yet: each
-# exits 2 naming its ROADMAP queue 1 item (dest, flag, what, item)
-LATER_SWEEP_FLAGS = (
-    ("lease_ttl", "--lease-ttl", "the sweep fabric's chunk leases", 11),
-)
-# subcommands of the reference CLI that later slices port
-LATER_COMMANDS = {"explore": 11, "sweep-worker": 11}
-
-
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="repro_torch.pathfind",
                                 description=__doc__,
@@ -255,12 +271,17 @@ def _parser() -> argparse.ArgumentParser:
     sw.add_argument("--chunk-size", type=int, default=32,
                     help="design points per chunk (checkpoint granularity)")
     sw.add_argument("--workers", type=int, default=None,
-                    help="parallel chunk workers: on thread/process "
-                         "backends the pool size (on the pipeline/auto "
-                         "backend the reference's distributed sweep "
-                         "fabric, not ported yet: exits 2)")
+                    help="parallel chunk workers: on the pipeline/auto "
+                         "backend this spawns N `sweep-worker` processes "
+                         "over --out DIR (the distributed sweep fabric; "
+                         "0 = initialize the directory and wait for an "
+                         "external fleet); on thread/process backends it "
+                         "is the pool size")
     sw.add_argument("--lease-ttl", type=float, default=None,
-                    help="not ported yet (exits 2)")
+                    help="fabric chunk-lease TTL in seconds (default 30; "
+                         "workers heartbeat at ttl/3, expired leases are "
+                         "reclaimed — set comfortably above one "
+                         "superbatch's evaluation time)")
     sw.add_argument("--backend", default="auto",
                     choices=["auto", "pipeline", "serial", "thread",
                              "process", "device"],
@@ -306,6 +327,105 @@ def _parser() -> argparse.ArgumentParser:
                          "default; records equal to --bucketing's at "
                          "float32 rounding)")
     _add_device_flag(sw, "the evaluation")
+
+    wk = sub.add_parser(
+        "sweep-worker",
+        help="join a fabric sweep directory as a lease-claiming worker")
+    wk.add_argument("--dir", required=True,
+                    help="fabric sweep directory (initialized by `sweep "
+                         "--workers N --out DIR` of either package); mode "
+                         "and spec are read from the directory, so a fleet "
+                         "cannot disagree")
+    wk.add_argument("--id", default=None,
+                    help="worker id (default: unique per process "
+                         "incarnation — keep the default unless you know "
+                         "why)")
+    wk.add_argument("--ttl", type=float, default=None,
+                    help="lease TTL seconds (default 30)")
+    wk.add_argument("--poll", type=float, default=None,
+                    help="idle/coordination poll interval seconds "
+                         "(default 0.5)")
+    wk.add_argument("--claim-batch", type=int, default=None,
+                    help="chunks to lease per claim round (default: one "
+                         "superbatch's worth)")
+    wk.add_argument("--superbatch", type=int, default=None,
+                    help="design points per device dispatch (default 256)")
+    wk.add_argument("--compile-ahead", type=int, default=None, metavar="N",
+                    help="superbatches to pack ahead of the device stage "
+                         "(default 2)")
+    wbk = wk.add_mutually_exclusive_group()
+    wbk.add_argument("--bucketing", action="store_true",
+                     help="cross-design bucketed dispatch (off by default)")
+    wbk.add_argument("--no-bucketing", action="store_true",
+                     help="one vmapped function per design group (the "
+                          "default)")
+    wk.add_argument("--eval-delay", type=float, default=0.0,
+                    help="artificial per-chunk device latency in seconds "
+                         "(fan-out benchmarks / fault tests)")
+    wk.add_argument("--max-chunks", type=int, default=None,
+                    help="exit after committing N chunks (testing)")
+    _add_device_flag(wk, "the worker's evaluation")
+
+    ex = sub.add_parser("explore",
+                        help="surrogate-driven exploration: spend a "
+                             "real-evaluation budget on top-acquisition "
+                             "chunks instead of the full cross-product")
+    _add_axis_flags(ex)
+    _add_scenario_flags(ex)
+    ex.add_argument("--out", default=None,
+                    help="stream evaluated chunks + checkpoints into this "
+                         "directory (a normal partial sweep; enables "
+                         "--resume)")
+    ex.add_argument("--resume", action="store_true",
+                    help="continue from --out (spec loaded from "
+                         "DIR/spec.json; committed chunks are never "
+                         "re-evaluated and keep training the surrogate)")
+    ex.add_argument("--chunk-size", type=int, default=8,
+                    help="design points per evaluated chunk (default 8; "
+                         "acquisition ranks whole chunks)")
+    ex.add_argument("--train-from", default=None, metavar="DIR",
+                    help="seed the surrogate with a finished/partial "
+                         "sweep directory's records (read via the "
+                         "torn-line-tolerant JSONL reader; they count "
+                         "toward the training floor, not the budget)")
+    ex.add_argument("--eval-budget", type=int, default=None,
+                    help="hard ceiling on real-evaluated points "
+                         "(default: --eval-frac of the grid)")
+    ex.add_argument("--eval-frac", type=float, default=0.25,
+                    help="budget as a fraction of the full grid when "
+                         "--eval-budget is not given (default 0.25)")
+    ex.add_argument("--init-chunks", type=int, default=4,
+                    help="evenly-spread seed chunks before the first fit "
+                         "(default 4)")
+    ex.add_argument("--batch-chunks", type=int, default=4,
+                    help="top-acquisition chunks evaluated per round "
+                         "(default 4)")
+    ex.add_argument("--stagnation", type=int, default=3,
+                    help="stop after N rounds with an unchanged frontier "
+                         "(default 3)")
+    ex.add_argument("--acquisition", default="ucb",
+                    choices=["ucb", "epi"],
+                    help="chunk-ranking rule: ucb = optimistic dominance "
+                         "margin; epi = expected Pareto improvement")
+    ex.add_argument("--kappa", type=float, default=1.0,
+                    help="UCB exploration weight (default 1.0)")
+    ex.add_argument("--ensemble", type=int, default=4,
+                    help="surrogate ensemble size (default 4)")
+    ex.add_argument("--hidden", type=int, default=32,
+                    help="surrogate hidden width (default 32)")
+    ex.add_argument("--steps", type=int, default=300,
+                    help="surrogate fit steps per round (default 300)")
+    ex.add_argument("--lr", type=float, default=0.01)
+    ex.add_argument("--seed", type=int, default=0)
+    ex.add_argument("--csv", default=None,
+                    help="also write the explored frontier CSV here")
+    ex.add_argument("--order-dir", default=None, metavar="DIR",
+                    help="rank DIR's fabric chunks with the surrogate "
+                         "and write DIR/order.json (advisory worker "
+                         "claim order) instead of evaluating anything; "
+                         "trains on DIR's committed shards plus "
+                         "--train-from")
+    _add_device_flag(ex, "the evaluations and the surrogate's fits")
 
     pl = sub.add_parser("plan", help="runtime sharding plan for one point")
     pl.add_argument("--arch", required=True)
@@ -452,10 +572,6 @@ def _parser() -> argparse.ArgumentParser:
     so.add_argument("--no-search-arch", action="store_true",
                     help="rank strategies only (skip the budget GD)")
     _add_device_flag(so, "the search")
-
-    for cmd, item in LATER_COMMANDS.items():
-        sub.add_parser(cmd, help=f"not ported yet (ROADMAP queue 1 item "
-                                 f"{item}; exits 2)", add_help=False)
     return p
 
 
@@ -586,23 +702,9 @@ def _cmd_validate(args) -> int:
     return 0
 
 
-def _later_flag(args) -> Optional[str]:
-    """The ``error:`` text for the first flag of a later item, or None."""
-    for dest, flag, what, item in LATER_SWEEP_FLAGS:
-        val = getattr(args, dest, None)
-        if val is not None and val is not False:
-            return (f"{flag}: {what} is not ported yet (ROADMAP queue 1 "
-                    f"item {item})")
-    return None
-
-
 def _cmd_sweep(args) -> int:
     """``pathfind sweep``: the in-memory sweep, or the chunked runner when
     any of its flags is given (the reference's routing)."""
-    later = _later_flag(args)
-    if later:
-        print(f"error: {later}", file=sys.stderr)
-        return 2
     # every flag the chunked engine owns must route there — a runner-only
     # flag silently dropped by the in-memory path is a footgun
     use_runner = bool(args.out or args.resume or args.scenario != "train"
@@ -614,6 +716,7 @@ def _cmd_sweep(args) -> int:
                       or args.workers is not None
                       or args.frontier_only or args.superbatch is not None
                       or args.frontier_cap is not None
+                      or args.lease_ttl is not None
                       or args.compile_ahead is not None
                       or args.no_bucketing or args.bucketing
                       or (args.arch and "all" in args.arch))
@@ -733,8 +836,7 @@ def _cmd_sweep_runner(args) -> int:
     kwargs = dict(backend=args.backend, workers=args.workers,
                   superbatch=args.superbatch, device=args.device,
                   compile_ahead=args.compile_ahead,
-                  bucketing=True if args.bucketing
-                  else False if args.no_bucketing else None)
+                  bucketing=_bucketing_arg(args))
     if args.resume:
         if not args.out:
             print("error: --resume requires --out DIR", file=sys.stderr)
@@ -759,13 +861,13 @@ def _cmd_sweep_runner(args) -> int:
             print(f"# profile: {args.profile} "
                   f"(tech={spec.profile.get('tech')})", file=sys.stderr)
         runner = sweeprunner.SweepRunner(spec, out_dir=args.out, **kwargs)
-    # --workers on the pipeline backend is the reference's distributed
-    # sweep fabric (N sweep-worker processes over --out)
+    # --workers on the pipeline backend = the distributed sweep fabric:
+    # spawn N sweep-worker processes over --out and merge their shards
     if args.workers is not None and runner.backend == "pipeline":
-        print("error: --workers: parallel chunk workers on the "
-              "pipeline/auto backend (the distributed sweep fabric) is "
-              "not ported yet (ROADMAP queue 1 item 11); --backend thread "
-              "or process runs a pool of N workers", file=sys.stderr)
+        return _cmd_sweep_fabric(args, runner.spec)
+    if args.lease_ttl is not None:
+        print("error: --lease-ttl is a fabric knob; combine it with "
+              "--workers N on the pipeline/auto backend", file=sys.stderr)
         return 2
 
     run_kwargs = dict(resume=args.resume, max_chunks=args.max_chunks,
@@ -808,8 +910,7 @@ def _cmd_sweep_runner(args) -> int:
                   f"({stats.n_frontier_overflowed} candidates dropped); "
                   f"raise --frontier-cap", file=sys.stderr)
     if not stats.complete:
-        device = "" if runner.device.type == "cuda" \
-            else f" --device {runner.device.type}"
+        device = _device_flag(runner.device)
         if stats.frontier_only and stats.out_dir:
             print(f"# incomplete: resume with `python -m "
                   f"repro_torch.pathfind sweep --out {stats.out_dir} "
@@ -833,6 +934,218 @@ def _cmd_sweep_runner(args) -> int:
         best = min(feasible, key=lambda r: float(r[objectives[0]]))
         print(f"# best[{objectives[0]}]: {best['key']} -> "
               f"{float(best[objectives[0]]):.4g}", file=sys.stderr)
+    return 0
+
+
+def _device_flag(device) -> str:
+    """The ``--device`` a printed command needs to run where this one
+    ran (nothing for the card, the default)."""
+    return "" if device.type == "cuda" else f" --device {device.type}"
+
+
+def _bucketing_arg(args) -> Optional[bool]:
+    return True if args.bucketing else False if args.no_bucketing else None
+
+
+def _cmd_sweep_fabric(args, spec) -> int:
+    """Distributed fabric path of `sweep`: coordinator + N local workers
+    (repro_torch.core.sweepfabric)."""
+    from repro_torch.core import sweepfabric, sweeprunner
+
+    if not args.out:
+        print("error: --workers N on the pipeline backend is the "
+              "distributed sweep fabric; it needs --out DIR (the shared "
+              "coordination directory)", file=sys.stderr)
+        return 2
+    if args.max_chunks is not None:
+        print("error: --max-chunks is incompatible with the fabric (the "
+              "coordinator waits for global completion); use "
+              "`sweep-worker --max-chunks` on an individual worker",
+              file=sys.stderr)
+        return 2
+    coord = sweepfabric.FabricCoordinator(
+        spec, args.out, workers=args.workers,
+        ttl_s=args.lease_ttl or sweepfabric.DEFAULT_TTL_S,
+        frontier_only=args.frontier_only,
+        frontier_capacity=args.frontier_cap,
+        superbatch=args.superbatch,
+        compile_ahead=args.compile_ahead,
+        bucketing=_bucketing_arg(args), device=args.device)
+    if args.workers == 0:
+        print(f"# fabric: directory initialized; join workers with "
+              f"`python -m repro_torch.pathfind sweep-worker --dir "
+              f"{args.out}{_device_flag(coord.device)}`", file=sys.stderr)
+    stats = coord.run()
+    scn = spec.scenario_spec.variants()[0].resolve()
+    records = stats.records or []
+    shown = records
+    objectives = args.pareto or list(scn.objectives)
+    if args.pareto:
+        shown = sweeprunner.pareto_records(records, objectives)
+    csv_text = sweeprunner.to_csv(shown, scn)
+    print(csv_text)
+    if args.csv:
+        with open(args.csv, "w") as fh:
+            fh.write(csv_text + "\n")
+        print(f"# wrote {len(shown)} points to {args.csv}",
+              file=sys.stderr)
+    mode = " frontier-only" if stats.mode == "frontier" else ""
+    print(f"# sweep[{scn.name}]{mode} fabric: {stats.n_points_total} "
+          f"points in {stats.n_chunks_total} chunks across "
+          f"{stats.n_workers} workers; {stats.n_chunks_committed} "
+          f"committed in {stats.elapsed_s:.1f}s", file=sys.stderr)
+    if stats.mode == "frontier":
+        print(f"# frontier: {len(records)} non-dominated points over "
+              f"{'/'.join(scn.objectives)}", file=sys.stderr)
+        if stats.n_frontier_overflowed:
+            print(f"# warning: a worker's device frontier capacity "
+                  f"overflowed ({stats.n_frontier_overflowed} candidates "
+                  f"dropped); raise --frontier-cap", file=sys.stderr)
+    if not stats.complete:
+        print(f"# incomplete: resume with the same command (committed "
+              f"chunks in {stats.out_dir} are never re-evaluated)",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_sweep_worker(args) -> int:
+    """Lease-claiming fabric worker (repro_torch.core.sweepfabric)."""
+    from repro_torch.core import sweepfabric
+
+    rc = _validate_dispatch_args(args)
+    if rc:
+        return rc
+    kwargs = {}
+    if args.ttl is not None:
+        kwargs["ttl_s"] = args.ttl
+    if args.poll is not None:
+        kwargs["poll_s"] = args.poll
+    worker = sweepfabric.FabricWorker(
+        args.dir, worker_id=args.id, claim_batch=args.claim_batch,
+        superbatch=args.superbatch, eval_delay_s=args.eval_delay,
+        max_chunks=args.max_chunks,
+        compile_ahead=args.compile_ahead,
+        bucketing=_bucketing_arg(args), device=args.device, **kwargs)
+    stats = worker.run()
+    print(f"# worker {stats.worker}: committed "
+          f"{stats.n_chunks_committed} chunks ({stats.n_points} points) "
+          f"in {stats.elapsed_s:.1f}s"
+          + (f"; lost {stats.n_lost_leases} lease batch(es)"
+             if stats.n_lost_leases else "")
+          + ("; preempted (SIGTERM) — in-flight work committed"
+             if stats.preempted else ""),
+          file=sys.stderr)
+    return 0
+
+
+def _cmd_explore(args) -> int:
+    """Surrogate + acquisition-driven exploration
+    (repro_torch.core.surrogate)."""
+    from repro_torch import resolve_device
+    from repro_torch.core import surrogate, sweeprunner
+
+    cfg = surrogate.ExploreConfig(
+        eval_budget=args.eval_budget, eval_frac=args.eval_frac,
+        init_chunks=args.init_chunks, batch_chunks=args.batch_chunks,
+        stagnation=args.stagnation, acquisition=args.acquisition,
+        kappa=args.kappa,
+        surrogate=surrogate.SurrogateConfig(
+            ensemble=args.ensemble, hidden=args.hidden, steps=args.steps,
+            lr=args.lr, seed=args.seed))
+
+    train_records = None
+    if args.train_from:
+        _, train_records = surrogate.load_training_records(args.train_from)
+        if not train_records:
+            print(f"error: no committed records in {args.train_from}",
+                  file=sys.stderr)
+            return 2
+        print(f"# surrogate: seeded with {len(train_records)} records "
+              f"from {args.train_from}", file=sys.stderr)
+
+    # axis/scenario flags are meaningless when the spec comes from a
+    # directory; refuse them instead of silently ignoring them
+    if args.resume or args.order_dir:
+        src = args.order_dir or args.out
+        ignored = _spec_flags_given(args, dict(
+            _AXIS_DEFAULTS, scenario="train", chunk_size=8))
+        if ignored:
+            print(f"error: the spec is loaded from {src}/spec.json; drop "
+                  f"these flags (they would be ignored): "
+                  f"{', '.join(ignored)}", file=sys.stderr)
+            return 2
+
+    if args.order_dir:
+        # ranking-only mode: no real evaluations, just DIR/order.json
+        if args.out or args.resume:
+            print("error: --order-dir ranks an existing fabric "
+                  "directory; it is incompatible with --out/--resume",
+                  file=sys.stderr)
+            return 2
+        from repro_torch.core import sweepfabric
+        _, fabric = sweepfabric.load_dir(args.order_dir)
+        if fabric.get("mode") == "frontier":
+            committed, _, _ = sweepfabric.merge_frontier(
+                args.order_dir, device=args.device)
+        else:
+            committed, _ = sweepfabric.merge_results(args.order_dir)
+        rows = list(train_records or []) + list(committed)
+        if not rows:
+            print(f"error: nothing to train on — {args.order_dir} has no "
+                  f"committed chunks yet; seed with --train-from DIR",
+                  file=sys.stderr)
+            return 2
+        order = surrogate.order_fabric_dir(args.order_dir, rows, cfg=cfg,
+                                           device=args.device)
+        print(f"# explore: wrote advisory order for {len(order)} chunks "
+              f"-> {args.order_dir}/order.json (trained on {len(rows)} "
+              f"records); workers claim frontier-adjacent chunks first",
+              file=sys.stderr)
+        head = ",".join(str(i) for i in order[:8])
+        print(f"# explore: first claims: {head}"
+              + (",..." if len(order) > 8 else ""), file=sys.stderr)
+        return 0
+
+    if args.resume:
+        if not args.out:
+            print("error: --resume requires --out DIR", file=sys.stderr)
+            return 2
+        spec, _ = surrogate.load_training_records(args.out)
+    else:
+        if not (args.arch and args.mesh):
+            print("error: explore needs --arch and --mesh (or --resume "
+                  "with --out / --order-dir DIR)", file=sys.stderr)
+            return 2
+        spec = _spec_from_args(args)
+
+    stats = surrogate.explore(spec, out_dir=args.out, cfg=cfg,
+                              resume=args.resume,
+                              train_records=train_records, verbose=True,
+                              device=args.device)
+    scn = spec.scenario_spec.variants()[0].resolve()
+    csv_text = sweeprunner.to_csv(stats.frontier, scn)
+    print(csv_text)
+    if args.csv:
+        with open(args.csv, "w") as fh:
+            fh.write(csv_text + "\n")
+        print(f"# wrote {len(stats.frontier)} frontier points to "
+              f"{args.csv}", file=sys.stderr)
+    frac = stats.n_points_evaluated / max(stats.n_points_total, 1)
+    print(f"# explore[{scn.name}] acq={cfg.acquisition}: evaluated "
+          f"{stats.n_points_evaluated}/{stats.n_points_total} points "
+          f"({frac:.0%}) in {stats.n_chunks_evaluated} chunks "
+          f"(+{stats.n_chunks_skipped} resumed) over {stats.rounds} "
+          f"rounds in {stats.elapsed_s:.1f}s; stop={stats.stop}",
+          file=sys.stderr)
+    print(f"# frontier: {len(stats.frontier)} non-dominated points over "
+          f"{'/'.join(stats.objectives)}", file=sys.stderr)
+    if stats.out_dir:
+        dev = _device_flag(resolve_device(args.device))
+        print(f"# continue with `python -m repro_torch.pathfind explore "
+              f"--out {stats.out_dir} --resume{dev}`, or exhaust the grid "
+              f"with `sweep --out {stats.out_dir} --resume{dev}`",
+              file=sys.stderr)
     return 0
 
 
@@ -1038,21 +1351,12 @@ def _cmd_plan(args) -> int:
 
 
 def main(argv=None) -> int:
-    parser = _parser()
-    # a subcommand of a later slice takes the reference's flags, which are
-    # not declared here: its arguments are left over, and it is refused by
-    # name below
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd in LATER_COMMANDS:
-        print(f"error: pathfind {args.cmd} is not ported yet (ROADMAP "
-              f"queue 1 item {LATER_COMMANDS[args.cmd]})", file=sys.stderr)
-        return 2
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = _parser().parse_args(argv)
     try:
-        return {"sweep": _cmd_sweep, "plan": _cmd_plan, "size": _cmd_size,
+        return {"sweep": _cmd_sweep, "sweep-worker": _cmd_sweep_worker,
+                "plan": _cmd_plan, "size": _cmd_size,
                 "calibrate": _cmd_calibrate, "validate": _cmd_validate,
-                "soe": _cmd_soe,
+                "soe": _cmd_soe, "explore": _cmd_explore,
                 "cooptimize": _cmd_cooptimize}[args.cmd](args)
     except ModuleNotFoundError as e:
         print(f"error: unknown arch (no config module): {e.name}",

@@ -21,10 +21,12 @@ from repro_torch import pathfind
 RTOL = 1e-5
 SWEEP_ARGV = ["sweep", "--arch", "qwen1.5-0.5b", "--mesh", "8x8",
               "--logic", "N7,N5,N3", "--hbm", "HBM2E,HBM3"]
-# the flags of the reference's `sweep` whose machinery comes with a later
-# item, with the item each error names (``--workers`` on the default,
-# pipeline backend is the reference's sweep fabric)
-LATER_ARGV = ((["--workers", "2"], 11), (["--lease-ttl", "9"], 11))
+# the sweep fabric's flags used wrongly: ``--workers`` on the default,
+# pipeline backend without ``--out`` (the fabric's directory), with
+# ``--max-chunks``, and ``--lease-ttl`` without ``--workers``
+LATER_ARGV = (["--workers", "2"], ["--workers", "2", "--out", "d",
+                                   "--max-chunks", "1"],
+              ["--lease-ttl", "9"])
 # the execution flags of the compile-ahead slice: each runs the sweep,
 # on the chunked runner (whose summary has a compile line) but for
 # --no-compile-cache, which alone the reference leaves to the in-memory
@@ -32,8 +34,10 @@ LATER_ARGV = ((["--workers", "2"], 11), (["--lease-ttl", "9"], 11))
 EXEC_ARGV = (["--compile-ahead", "1"], ["--no-bucketing"],
              ["--bucketing", "--compile-ahead", "1"],
              ["--no-compile-cache"], ["--backend", "device"])
-LATER_COMMANDS = ((["explore", "--arch", "qwen1.5-0.5b"], 11),
-                  (["sweep-worker", "--dir", "d"], 11))
+# the fabric's and the surrogate's subcommands, given too little
+LATER_COMMANDS = (["explore", "--arch", "qwen1.5-0.5b"],
+                  ["sweep-worker", "--dir", "no-such-dir"],
+                  ["sweep-worker", "--dir", "d", "--superbatch", "0"])
 UNKNOWN_ARGV = (["--arch", "no-such-arch"], ["--cell", "no_such_cell"],
                 ["--logic", "N99"], ["--hbm", "HBM9"])
 
@@ -102,25 +106,27 @@ def test_plan_prints_what_the_reference_prints(private_ref_cache, capsys):
     assert got.startswith("strategy       RC-1-16-d16-p1\n")
 
 
-def test_runner_flags_exit_2_naming_item_6(capsys):
-    """Item 6 (the chunked runner) is ported, and its flags now route there
-    (``tests/test_torch_sweep_runner_cli.py``); what still exits 2 is each
-    flag and subcommand of the reference whose machinery comes with a
-    later item, naming that item, before anything is evaluated.  The
-    compile-ahead slice's flags run the sweep; ``--compile-ahead 0``
-    exits 2 with the reference's message."""
-    for flag, item in LATER_ARGV:
-        rc = pathfind.main(SWEEP_ARGV + flag + ["--device", "cpu"])
-        err = capsys.readouterr().err
-        assert rc == 2 and err.startswith("error: "), flag
-        assert f"item {item}" in err and "item 6" not in err, (flag, err)
-        if flag[0] != "--backend":
-            assert err.startswith(f"error: {flag[0]}: "), (flag, err)
-    for argv, item in LATER_COMMANDS:
-        rc = pathfind.main(argv)
-        err = capsys.readouterr().err
-        assert rc == 2 and err == (f"error: pathfind {argv[0]} is not ported "
-                                   f"yet (ROADMAP queue 1 item {item})\n")
+def test_runner_flags_exit_2_naming_item_6(private_ref_cache, capsys):
+    """Item 6 (the chunked runner) is ported, and its flags route there
+    (``tests/test_torch_sweep_runner_cli.py``); item 11's fabric and
+    surrogate are ported too (``tests/test_torch_fabric_cli.py``,
+    ``test_torch_explore.py``), so their flags and subcommands, used
+    wrongly, exit 2 with the reference's message before anything is
+    evaluated.  The compile-ahead slice's flags run the sweep;
+    ``--compile-ahead 0`` exits 2 with the reference's message."""
+    errs = []
+    for argv in [SWEEP_ARGV + flag for flag in LATER_ARGV] + list(
+            LATER_COMMANDS):
+        assert ref_pathfind.main(argv) == 2, argv
+        want = capsys.readouterr().err
+        rc = pathfind.main(argv + ["--device", "cpu"])
+        errs.append(capsys.readouterr().err)
+        assert rc == 2 and errs[-1].startswith("error: ") and \
+            errs[-1] == want, (argv, errs[-1], want)
+    assert errs[0].startswith("error: --workers N on the pipeline backend "
+                              "is the distributed sweep fabric; it needs "
+                              "--out DIR")
+    assert errs[2].startswith("error: --lease-ttl is a fabric knob")
     for flag in EXEC_ARGV:
         rc = pathfind.main(SWEEP_ARGV + flag + ["--device", "cpu"])
         out, err = capsys.readouterr()

@@ -97,6 +97,15 @@ def test_entry_points_need_the_card_unless_asked(cal_dir):
                                     Strategy("RC", kp1=1, kp2=1, dp=1))
     with pytest.raises(RuntimeError, match="CUDA"):
         port_train.main(["--reduced", "--steps", "1"])
+    # the fleet, its workers and the surrogate's exploration
+    fleet = str(cal_dir.parent / "no-fleet")
+    for argv in (["sweep", "--arch", "qwen1.5-0.5b", "--mesh", "2x2",
+                  "--workers", "2", "--out", fleet],
+                 ["sweep-worker", "--dir", fleet],
+                 ["explore", "--arch", "qwen1.5-0.5b", "--mesh", "2x2"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pathfind.main(argv)
+    assert not os.path.exists(os.path.join(fleet, "shards"))
 
 
 TINY = dict(suite="slice", gemm_shapes=((64, 64, 64), (128, 128, 256)),
@@ -165,7 +174,8 @@ def _chip_smoke():
     return mod
 
 
-def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
+def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys,
+                                                monkeypatch):
     cs = _chip_smoke()
     spec = microbench.MeasureSpec(**dict(
         TINY, model_archs=("qwen1.5-0.5b",),
@@ -203,11 +213,31 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
                     whisper=dict(cs.FAMILIES["whisper"], frames=(2, 24),
                                  steps=4, train=(2, 24)),
                     serve=dict(batch=2, prompt_len=4, gen=2))
+    # phase 10: a fleet of one worker (and its respawn), each worker
+    # process on one host thread, beside the other test processes; explore
+    # over the golden archs' 16 points needs a budget above the
+    # surrogate's training floor (the card's default budget runs over
+    # every arch)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    fleet = dict(cs.FLEET, workers=1, explore=("--chunk-size", "1",
+                                               "--eval-budget", "12"))
+    phase_fleet = cs.phase_fleet
+
+    def one_thread_fleet(*args, **kwargs):
+        # the surrogate's small fits on one host thread in this process too
+        prev = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return phase_fleet(*args, **kwargs)
+        finally:
+            torch.set_num_threads(prev)
+
+    monkeypatch.setattr(cs, "phase_fleet", one_thread_fleet)
     rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
                   dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
                   16, recurrent, steps=3, starts=2, search=search,
                   runner=runner, deepflow=deepflow, train=train,
-                  families=families)
+                  families=families, fleet=fleet)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
     assert "strategy       RC-1-16-d16-p1" in out
@@ -235,8 +265,9 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     assert out.count("the bucketed pipeline's records are the bucketed "
                      "serial's bit for bit") == 3
     assert out.count(" designs traced into ") == 6
-    assert "buckets on the host (no profile)" in out
-    assert "groups, unbucketed on the host (no profile)" in out
+    assert out.count("of 84 rows of (c)'s skeleton") == 2
+    assert "buckets on cpu: 16 records" in out
+    assert "groups, unbucketed on cpu: 16 records" in out
     for flags, held in (("--bucketing --compile-ahead 2 --no-compile-cache",
                          "the bucketed pipeline's records bit for bit"),
                         ("--no-bucketing", "the pipeline's records "),
@@ -283,6 +314,23 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys):
     assert out.count("-- (c) collective ") == 2
     assert "-- (d) the host has 0 card(s): no 2-rank mesh" in out
     assert not torch.distributed.is_initialized()
+    assert "== phase 10: the fleet and the surrogate on cpu" in out
+    assert "  (a) pathfind sweep --workers 1 --out DIR (train, golden " \
+        "archs): 16 points in 2 chunks, " in out
+    assert "(d)'s pipeline records bit for bit, 16 golden records" in out
+    assert out.count(" (interpreter, torch import, device context), ") \
+        == 1
+    assert "  (b) a fleet of 1 over 8 chunks, one SIGKILL'd at post_rows:2 " \
+        "(exit codes [-9]) and one respawn: 2 incarnations" in out
+    assert "  (b) a worker SIGTERM'd in its first superbatch: exit 0, " in out
+    assert "  (c) --workers 1 --frontier-only (train, (d)'s axes): " in out
+    assert "phase 4's --frontier-only frontier bit for bit" in out
+    assert "evaluated 12/16 points over 1 rounds in " in out
+    assert "of the exhaustive frontier found" in out
+    assert "the surrogate's fit on 12 records" in out
+    assert "claimed and committed in that order" in out
+    assert "# phase 10: " in out and "# gemm kernel launches on phase 10: 0" \
+        in out
     assert "4 decode steps from the prefill vs a forward" in out
     assert out.count("Model.prefill") == 4
     assert [r["name"] for r in rows] == ["gemm", "flash_attention",
@@ -330,6 +378,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert len(files) > 20
     assert REPO / "src" / "repro_torch" / "core" / "sweeppipeline.py" in files
     assert REPO / "src" / "repro_torch" / "launch" / "mesh.py" in files
+    for name in ("sweepfabric.py", "surrogate.py"):
+        assert REPO / "src" / "repro_torch" / "core" / name in files
     walked = {f.parent.name for f in files}
     assert {"core", "kernels", "calibrate", "models", "launch", "optim",
             "data", "runtime", "checkpoint", "parallel"} <= walked

@@ -167,7 +167,7 @@ def test_pool_backends_write_the_reference_directory(tmp_path, capsys,
 def test_superbatch_changes_nothing_but_the_dispatch(tmp_path, capsys):
     """``--superbatch`` 1, 4 and the default write the same directory;
     0 exits 2 with the reference's message, as ``--workers`` on the
-    pipeline does naming the fabric's item."""
+    pipeline (the fabric) does without ``--out``."""
     dirs = []
     for sb in (None, 1, 4):
         d = tmp_path / f"sb-{sb}"
@@ -185,8 +185,10 @@ def test_superbatch_changes_nothing_but_the_dispatch(tmp_path, capsys):
         "error: --superbatch must be a positive number of design points "
         "(got 0); drop the flag for the default (256)\n")
     rc, _, err = _main(["sweep", *TRAIN, *CPU, "--workers", 2], capsys)
-    assert rc == 2 and err.startswith("error: --workers: ") and \
-        "item 11" in err
+    assert rc == 2 and err == (
+        "error: --workers N on the pipeline backend is the distributed "
+        "sweep fabric; it needs --out DIR (the shared coordination "
+        "directory)\n")
 
 
 def test_sigkill_of_a_pipeline_sweep_then_resume(tmp_path):
