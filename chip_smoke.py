@@ -99,9 +99,9 @@ the sweep fabric and DeepFlow's surrogate exploration (``pathfind sweep
                text; points/s of every sweep and backend on both; (e)
                DeepFlow's search: ``pathfind soe`` for qwen1.5-0.5b x
                train_4k on 64 devices at the reference's defaults on
-               card and host (the same strategy and queries, the batched
-               path, the best time within TIME_RTOL, the reference's
-               printed lines from ``tests/test_torch_golden_soe.json``),
+               the card (the batched path, the reference's printed lines
+               from ``tests/test_torch_golden_soe.json``; its host run
+               cut for phase 11's time),
                the reference's SOE and refine objectives, gradients and
                a three-step descent from that file (SOE_TOLS), ``pathfind
                cooptimize --from`` (d)'s card-written train and
@@ -186,11 +186,34 @@ the sweep fabric and DeepFlow's surrogate exploration (``pathfind sweep
                points evaluated), the surrogate fitted on card and host
                from one seed (seconds each, predictions within the CPU
                test's tolerance), then ``explore --order-dir`` on a fresh
-               fabric directory whose card worker claims in that order.
+               fabric directory whose card worker claims in that order;
+ 11. dry-run   the multi-pod dry-run (``python -m repro_torch.launch.
+               dryrun``: the step on fake tensors over a fake 256- or
+               512-rank process group), each run a process of its own
+               (phase 9's process group is real), all started together
+               before phase 1 and waited for after phase 2 (beside the
+               build and the device-timed kernel checks: no host-bound
+               measurement of phases 3-10 shares the host with them),
+               one host thread each and no card visible to them (the
+               dry-run touches none), each process's own wall and CPU
+               seconds printed, the records held after phase 10:
+               (a) the CLI at full width on the card's path (DRYRUN:
+               qwen1.5-0.5b x train_4k on each production mesh,
+               recurrentgemma-2b and qwen2-moe-a2.7b on the single pod),
+               printing FLOPs per device, peak GiB beside the card's
+               memory, collectives and kernel calls of each record; (b)
+               phase 7 (b)'s own step (one device, no mesh, f32, no remat)
+               through ``dryrun._step_metrics``, its argument bytes and
+               attention calls held to that phase's first timed step
+               exactly (the real parameters', moments' and batch's
+               bytes; the flash-attention launches the step made), its
+               peak bytes printed against the step's
+               ``torch.cuda.max_memory_allocated``.
 
 Every kernel's launch count is zeroed just before phases 3-5, 6, 7 (b)-(e),
 8, 9 (a) and 10, and read just after each; each must have risen by exactly
-the count the paths imply.  Any failure exits non-zero.  The last
+the count the paths imply (phase 11 launches nothing: its kernels are
+their fake-tensor rules).  Any failure exits non-zero.  The last
 two lines of standard output are a JSON line of kernel results and the
 device line ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line
 before them is the card's name and power limit as nvidia-smi gives them.
@@ -210,6 +233,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -382,15 +406,13 @@ GOLDEN_RUNNER = ROOT / "tests" / "test_torch_golden_runner.jsonl"
 # phase 4 (e), DeepFlow: ``pathfind soe`` at the reference's defaults (20
 # steps, 4 starts, 8 tilings), whose printed lines the golden file holds;
 # ``pathfind cooptimize --from`` phase 4 (d)'s card-written train and
-# calibrated serving-traffic directories with these flags; the card's
-# best time against the host's (TIME_RTOL) and each refined record
-# against the host's (SEARCH_RTOL)
+# calibrated serving-traffic directories with these flags, each refined
+# record against the host's (SEARCH_RTOL)
 DEEPFLOW = dict(
     soe=("--arch", "qwen1.5-0.5b", "--cell", "train_4k", "--devices", "64"),
     cooptimize=("--top-k", "2", "--candidates", "1", "--steps", "8",
                 "--starts", "4"),
     dirs=("train", "traffic"))
-TIME_RTOL = 1e-4
 # the reference's objectives, gradients and first descent steps at fixed
 # points (tests/test_torch_golden_soe.py writes it), held on the card at
 # value rtol / gradient tolerance (of the gradient's norm) / iterate atol
@@ -961,8 +983,8 @@ def phase_attention(device, cmp_cases, timed_cases, more_timed=()) -> dict:
             backends += ("; without enable_gqa %.4f ms" % _graph_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, kc, vc, is_causal=kw["causal"]), device))
-        flops = 4.0 * b * h * d * _visible_pairs(sq, skv, **kw)
-        nbytes = float(2 * (2 * b * h * sq * d + 2 * b * hkv * kvl * d))
+        flops = fa.flops(b, h, sq, skv, d, _visible_pairs(sq, skv, **kw))
+        nbytes = fa.io_bytes(b, h, hkv, sq, kvl, d, 2)
         bound, by = _bound(flops, nbytes, "bfloat16")
         print(f"  time flash_attention bfloat16 {shape} {kw}: kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
@@ -1033,8 +1055,8 @@ def phase_rglru(device, cmp_shapes, timed_shapes) -> dict:
         # the plain version is a loop of 3 launches per step: few replays
         plain = _graph_ms(lambda: rglru_scan_ref(a, b, h0), device,
                           iters=2, reps=2)
-        flops = 2.0 * batch * seq * width
-        nbytes = float(4 * (3 * batch * seq * width + batch * width))
+        flops = rg.flops(batch, seq, width)
+        nbytes = rg.io_bytes(batch, seq, width, 4)
         bound, by = _bound(flops, nbytes, "float32")
         print(f"  time rglru_scan float32 {shape}: {variant} kernel "
               f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
@@ -1100,8 +1122,8 @@ def phase_mlstm(device, cmp_shapes, timed_shapes) -> dict:
         ms = _graph_ms(lambda: ml.mlstm_parallel(*ins), device)
         plain = _graph_ms(lambda: mlstm_parallel_ref(*ins), device,
                           iters=4, reps=2)
-        flops = 4.0 * b * h * d * _visible_pairs(s, s)
-        nbytes = float(2 * 4 * b * h * s * d + 4 * 2 * b * h * s)
+        flops = ml.flops(b, h, s, d, _visible_pairs(s, s))
+        nbytes = ml.io_bytes(b, h, s, d, 2)
         bound, by = _bound(flops, nbytes, "bfloat16")
         print(f"  time mlstm_parallel bfloat16 {shape}: kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
@@ -2005,37 +2027,30 @@ def phase_deepflow(device, deepflow: dict, runner_dir: Path) -> None:
     print("-- (e) DeepFlow: pathfind soe, the reference's objectives, "
           "pathfind cooptimize --from DIR")
 
-    # (i) pathfind soe: the batched path on both, the same strategy and
-    # queries, and the reference's printed lines where the golden file
-    # holds them for these flags
+    # (i) pathfind soe on the card (its host run was cut for phase 11's
+    # time): the batched path, and the reference's printed lines, which
+    # the golden file holds for these flags
     argv = ["soe", *deepflow["soe"]]
-    runs = {}
-    for k, dev in where.items():
-        with _Spy(soe, "optimize") as calls, \
-                _Spy(soe, "_optimize_sequential") as fd:
-            _, out, _, dt = _cli(argv + ["--device", dev])
-        assert not fd, "pathfind soe fell back to the FD loop"
-        steps = 0
-        for _, kw, res in calls:
-            # the batched path: one query per start and step, one history
-            # entry each (FD costs 17 queries per history entry)
-            assert res.n_queries == len(res.history) > 0, res.n_queries
-            steps += res.n_queries // kw["cfg"].starts
-        runs[k] = dict(_soe_fields(out), out=out, dt=dt, steps=steps)
-        print(f"  pathfind soe on {torch.device(dev).type}: "
-              f"{runs[k]['strategy']} {runs[k]['time_ms']} ms/iter, "
-              f"{runs[k]['queries']} queries; {len(calls)} descents, "
-              f"{steps} eq.-6 steps in {dt:.3f}s = {steps / dt:.2f} "
-              f"steps/s" + (f"  [{card}]" if k == "card" else ""))
-    c, h = runs["card"], runs["host"]
-    assert c["strategy"] == h["strategy"] and c["queries"] == h["queries"]
-    assert abs(c["time_ms"] - h["time_ms"]) <= TIME_RTOL * h["time_ms"], \
-        (c["time_ms"], h["time_ms"])
-    for entry in golden["soe_cli"]:
-        if entry["argv"] == argv:
-            exact = _printed_close(c["out"], entry["stdout"])
-            print(f"  the card's pathfind soe prints the reference's lines"
-                  + ("" if exact else " within the last printed digit"))
+    with _Spy(soe, "optimize") as calls, \
+            _Spy(soe, "_optimize_sequential") as fd:
+        _, out, _, dt = _cli(argv + ["--device", str(device)])
+    assert not fd, "pathfind soe fell back to the FD loop"
+    steps = 0
+    for _, kw, res in calls:
+        # the batched path: one query per start and step, one history
+        # entry each (FD costs 17 queries per history entry)
+        assert res.n_queries == len(res.history) > 0, res.n_queries
+        steps += res.n_queries // kw["cfg"].starts
+    c = _soe_fields(out)
+    print(f"  pathfind soe on {device.type}: {c['strategy']} "
+          f"{c['time_ms']} ms/iter, {c['queries']} queries; {len(calls)} "
+          f"descents, {steps} eq.-6 steps in {dt:.3f}s = {steps / dt:.2f} "
+          f"steps/s  [{card}]")
+    entry = [e for e in golden["soe_cli"] if e["argv"] == argv]
+    assert entry, f"{GOLDEN_SOE.name} holds no run of {argv}"
+    exact = _printed_close(out, entry[0]["stdout"])
+    print(f"  the card's pathfind soe prints the reference's lines"
+          + ("" if exact else " within the last printed digit"))
 
     # (ii) the reference's objectives, gradients and descent
     t0 = time.perf_counter()
@@ -2454,15 +2469,18 @@ def _batch(cfg, batch: int, seq: int, step: int, device, seed: int = 0):
 
 def _profile_train_step(step_fn, out, cfg, batch: int, seq: int, device,
                         at: int) -> None:
-    """One train step after the run, profiled: busy, idle, launches, the
-    three kernels' device time (the scan's holds its reversed launches)
-    and each Function's backward range (the plain recompute, or the
-    reversed scan), as shares of the busy time."""
+    """One train step after the run, profiled with device activity only:
+    busy, idle, launches and the three kernels' device time (the scan's
+    holds its reversed launches) as shares of the busy time.  Each
+    Function's backward range (the plain recompute, or the reversed scan)
+    is a host op, which such a profile does not record: those shares were
+    cut for phase 11's time (PERF.md keeps their last reading)."""
     st = out["state"]
     b = _batch(cfg, batch, seq, at, device)
     prof = _device_profile(lambda: step_fn(st.params, st.opt_state,
                                            st.err_state, b), 1,
-                           f"train step of {cfg.name} ({batch}, {seq})")
+                           f"train step of {cfg.name} ({batch}, {seq})",
+                           host_ops=False)
     if not prof:
         return
     busy, by_name, spans = prof
@@ -2478,7 +2496,8 @@ def _profile_train_step(step_fn, out, cfg, batch: int, seq: int, device,
                                 (None, 0))
         if not fwd and bwd is None:
             continue
-        bwd_text = ("not measured (no range recorded)" if bwd is None else
+        bwd_text = ("not measured (device activity only: the range is a "
+                    "host op; cut for phase 11's time)" if bwd is None else
                     f"{bwd / 1e3:.4f} ms over {ranges} ranges "
                     f"({bwd / busy * 100:.2f} %)")
         what = ("forward and reversed backward launches"
@@ -2583,8 +2602,17 @@ def phase_train(device, train: dict, workdir: Path,
                                         "none")
     st = out["state"]
     times = []
+    from repro_torch.kernels import flash_attention as fa
     for i in range(train["timed"]):
         batch = _batch(cfg, b, s, steps + i, device)
+        if i == 0:      # the step phase 11 (b)'s dry-run is held to
+            args = {"params": st.params, "opt": st.opt_state._asdict(),
+                    "batch": batch}
+            arg_bytes = sum(t.numel() * t.element_size()
+                            for t in tree_leaves(args))
+            n_attn = fa.LAUNCHES
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
         sync()
         t1 = time.perf_counter()
         st.params, st.opt_state, st.err_state, m = step_fn(
@@ -2592,9 +2620,15 @@ def phase_train(device, train: dict, workdir: Path,
         float(m["loss"])
         sync()
         times.append(time.perf_counter() - t1)
+        if i == 0:
+            step_rec = dict(
+                arg_bytes=arg_bytes, attention_launches=fa.LAUNCHES - n_attn,
+                peak_bytes=torch.cuda.max_memory_allocated(device)
+                if cuda else None)
     step_s = sorted(times)[len(times) // 2]
     if record is not None:
-        record.update(losses=list(hist), step_ms=step_s * 1e3)
+        record.update(losses=list(hist), step_ms=step_s * 1e3,
+                      step=step_rec)
     plan = out["plan"]
     print(f"  step time (median of {len(times)}, host clock after a "
           f"synchronise): {step_s * 1e3:.2f} ms, {b * s / step_s:.1f} "
@@ -3620,6 +3654,18 @@ FLEET = dict(workers=2, superbatch=8, ttl=4.0, chunk_size=2,
              explore=("--chunk-size", "2"))
 
 
+# phase 11, the multi-pod dry-run: (a) the CLI's cells (arch, cell,
+# --mesh), each a process of its own on the card's path; (b) phase 7 (b)'s
+# step through ``_step_metrics``; all started together before phase 1
+# and waited for, within ``timeout`` seconds, after phase 2 (each takes
+# 20-30 s of one thread of the card's host)
+DRYRUN = dict(cli=(("qwen1.5-0.5b", "train_4k", "single"),
+                   ("qwen1.5-0.5b", "train_4k", "multi"),
+                   ("recurrentgemma-2b", "prefill_32k", "single"),
+                   ("qwen2-moe-a2.7b", "decode_32k", "single")),
+              timeout=300)
+
+
 def _fleet_stats(d: Path) -> list:
     """Every worker incarnation's stats journal of a fabric directory;
     fails if a chunk was evaluated after any incarnation committed it."""
@@ -3877,6 +3923,196 @@ def phase_fleet(device, runner: dict, workdir: Path,
     print(laps.line("phase 10"))
 
 
+def dryrun_step(arch: str, batch: int, seq: int, use_reduced: bool,
+                device: str) -> None:
+    """Phase 11 (b)'s process: phase 7 (b)'s train step (one device, no
+    mesh, f32, no remat) through the dry-run's ``_step_metrics`` on
+    ``device``'s path; prints its counts as one JSON line.  First the
+    counter's planted check on this torch: a DTensor product on a fake
+    16x16 group counts rank 0's local product once (DTensor's sharding
+    propagation runs the global one too)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs.base import ShapeCell, get_config, reduced
+    from repro_torch.launch import counters, dryrun, mesh as mesh_lib
+    dev = dryrun.path_device(device)
+    with dryrun.fake_group(256):
+        mesh = mesh_lib.make_mesh((16, 16), device=device)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            a = DTensor.from_local(torch.empty(8, 1024, device=dev), mesh,
+                                   (Shard(0), Replicate()), run_check=False)
+            b = DTensor.from_local(torch.empty(1024, 256, device=dev), mesh,
+                                   (Replicate(), Shard(1)), run_check=False)
+            with counters.StepCounter((a, b)) as c:
+                a @ b
+    assert c.flops == 2.0 * 8 * 1024 * 256, c.flops
+    cfg = get_config(arch)
+    cfg = reduced(cfg) if use_reduced else cfg
+    m = dryrun._step_metrics(arch, ShapeCell("train", seq, batch, "train"),
+                             None, (1, 1), True, cfg, remat=False,
+                             device=device)
+    print(json.dumps({k: m[k] for k in ("flops", "bytes", "memory",
+                                        "kernels", "lower_s",
+                                        "compile_s")}))
+
+
+def start_dryrun(device, dry: dict, train: dict, workdir: Path) -> list:
+    """Phase 11's processes (one host thread each, no card visible: the
+    dry-run touches none), their output in ``workdir``: (a) the CLI on
+    ``dry["cli"]``'s cells, (b) `dryrun_step` on phase 7 (b)'s
+    configuration.  Returns [(what, process, start time, stdout and
+    stderr files, its end, its reaper thread)]: a thread waits for each
+    process as it exits (`_reap_one`).  The host's rehearsal counts the host's path
+    (``--device cpu``), which its phase 7 ran."""
+    path = "cuda" if device.type == "cuda" else "cpu"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    runs = [((arch, cell, mesh),
+             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+              arch, "--cell", cell, "--mesh", mesh, "--force", "--out",
+              str(workdir), "--device", path])
+            for arch, cell, mesh in dry["cli"]]
+    runs.append((None, [sys.executable, "-c",
+                        "import json, sys, chip_smoke; "
+                        "chip_smoke.dryrun_step(*json.loads(sys.argv[1]))",
+                        json.dumps([train["arch"], train["batch"],
+                                    train["seq"], train["use_reduced"],
+                                    path])]))
+    procs = []
+    try:
+        for i, (what, cmd) in enumerate(runs):
+            logs = (workdir / f"{i}.out", workdir / f"{i}.err")
+            with open(logs[0], "w") as out, open(logs[1], "w") as err:
+                proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                        stderr=err, text=True)
+            end: dict = {}
+            reaper = threading.Thread(target=_reap_one, args=(proc, end),
+                                      daemon=True)
+            reaper.start()
+            procs.append((what, proc, time.perf_counter(), logs, end,
+                          reaper))
+    except BaseException:
+        stop_dryrun(procs)
+        raise
+    return procs
+
+
+def _reap_one(proc, end: dict) -> None:
+    """Waits for ``proc`` as it exits; ``end`` gets its exit time and its
+    own CPU seconds (user + system, from its rusage)."""
+    _, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    end.update(t=time.perf_counter(), cpu=usage.ru_utime + usage.ru_stime)
+
+
+def stop_dryrun(procs: list) -> None:
+    """Kills what of phase 11's processes still runs."""
+    for _, proc, _, _, end, reaper in procs:
+        if reaper.is_alive():
+            proc.kill()
+        reaper.join()
+
+
+def _reap_dryrun(procs: list, timeout: float) -> list:
+    """Waits for `start_dryrun`'s processes, ``timeout`` seconds at most
+    from the first start; returns [(what, exit code, wall seconds, CPU
+    seconds, stdout, stderr)], each process's own wall time from its
+    start to its exit and its own CPU time."""
+    deadline = min(p[2] for p in procs) + timeout
+    done = []
+    for what, proc, start, logs, end, reaper in procs:
+        reaper.join(max(deadline - time.perf_counter(), 0.0))
+        if reaper.is_alive():
+            raise TimeoutError(f"phase 11: {what or 'dryrun_step'} still "
+                               f"ran after {timeout:.0f}s")
+        done.append((what, proc.returncode, end["t"] - start, end["cpu"],
+                     logs[0].read_text(), logs[1].read_text()))
+    return done
+
+
+def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
+                 workdir: Path) -> None:
+    """Phase 11: holds the records of `start_dryrun`'s processes, ended
+    (``done``, from `_reap_dryrun`) before phase 3 (see the module
+    docstring)."""
+    import torch
+    cuda = device.type == "cuda"
+    path = "cuda" if cuda else "cpu"
+    print(f"== phase 11: the multi-pod dry-run on fake tensors, the "
+          f"{path} path, {len(done)} processes run together before phase "
+          f"3; " + (card_line() if cuda else "host rehearsal"))
+    for what, rc, wall, cpu, out, err in done:
+        name = "(b) dryrun_step" if what is None else \
+            "(a) " + " ".join(what)
+        print(f"  {name}: exit {rc}, {wall:.2f}s wall, {cpu:.2f}s CPU")
+    total = torch.cuda.get_device_properties(device).total_memory \
+        if cuda else None
+    for what, rc, _, _, out, err in done:
+        if rc != 0:
+            print(out[-3000:])
+            for rec in workdir.glob("*.json"):
+                rec = json.loads(rec.read_text())
+                if not rec["ok"]:
+                    print(rec["traceback"])
+        assert rc == 0, (what, rc, err[-3000:])
+        if what is None:
+            continue
+        arch, cell, mesh = what
+        print(f"-- (a) python -m repro_torch.launch.dryrun --arch {arch} "
+              f"--cell {cell} --mesh {mesh} --device {path}: exit 0")
+        for mk in (("single", "multi") if mesh == "both" else (mesh,)):
+            tag = f"{arch}__{cell}__{mk}" + ("" if cuda else "__cpu")
+            rec = json.loads((workdir / f"{tag}.json").read_text())
+            assert rec["ok"] and rec["device"] == path, rec.get("traceback")
+            mem, coll = rec["memory"], rec["collectives"]
+            kinds = ", ".join(f"{k} {v / 2 ** 20:.1f} MiB"
+                              for k, v in coll.items()
+                              if k != "count" and v)
+            beside = (f" of the card's {total / 2 ** 30:.2f} GiB"
+                      if total else "")
+            flops, nbytes = rec["flops_per_device"], rec["bytes_per_device"]
+            print(f"  {mk} {tuple(rec['mesh_shape'])} ({rec['devices']} "
+                  f"fake ranks), {rec['strategy']}: {flops:.4e} FLOPs and "
+                  f"{nbytes:.4e} bytes per device; peak "
+                  f"{mem['peak_bytes'] / 2 ** 30:.2f} GiB"
+                  f"{beside} (arguments {mem['argument_bytes'] / 2 ** 30:.3f}"
+                  f", outputs {mem['output_bytes'] / 2 ** 30:.3f}, "
+                  f"temporaries {mem['temp_bytes'] / 2 ** 30:.2f}); "
+                  f"{coll['count']} collectives ({kinds}); kernel calls "
+                  f"{rec['kernels']}; built in {rec['lower_s']:.2f}s, "
+                  f"stepped in {rec['compile_s']:.2f}s; the planner predicts "
+                  f"{rec['predicted_step_s'] * 1e3:.2f} ms a step")
+            if cuda:
+                assert rec["kernels"].get("flash_attention", 0) > 0, rec
+    step = phase7["step"]
+    got = json.loads(done[-1][4].strip().splitlines()[-1])
+    mem = got["memory"]
+    print(f"-- (b) phase 7 (b)'s step ({train['arch']}, ({train['batch']}, "
+          f"{train['seq']}), f32, no remat) through _step_metrics: exit 0, "
+          f"built in {got['lower_s']:.2f}"
+          f"s, stepped in {got['compile_s']:.2f}s; {got['flops']:.4e} FLOPs, "
+          f"{got['bytes']:.4e} bytes, kernel calls {got['kernels']}")
+    print(f"  argument bytes {mem['argument_bytes']} against the real "
+          f"step's {step['arg_bytes']}; attention calls "
+          f"{got['kernels'].get('flash_attention', 0)} against its "
+          f"flash_attention launches {step['attention_launches']}")
+    assert mem["argument_bytes"] == step["arg_bytes"], (mem, step)
+    assert got["kernels"].get("flash_attention", 0) == \
+        step["attention_launches"], (got["kernels"], step)
+    if step["peak_bytes"] is None:
+        print(f"  peak {mem['peak_bytes']} bytes; the real step's "
+              f"max_memory_allocated not measured (no card)")
+    else:
+        peak, real = mem["peak_bytes"], step["peak_bytes"]
+        print(f"  peak {peak} bytes ({peak / 2 ** 30:.3f} GiB) against the "
+              f"real step's max_memory_allocated {real} ({real / 2 ** 30:.3f}"
+              f" GiB): dry-run / measured {peak / real:.4f}  "
+              f"[{card_line()}]")
+
+
 def _row(name: str, launches: int, res: dict) -> dict:
     row = {"name": name, **KERNELS[name], "launches": launches,
            "max_abs_err": res["max_abs_err"]}
@@ -3942,12 +4178,16 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
         starts: int = 2, search: dict = SEARCH,
         runner: dict = RUNNER, deepflow: dict = DEEPFLOW,
         train: dict = TRAIN, families: dict = FAMILIES,
-        parallel: dict = PARALLEL, fleet: dict = FLEET) -> list:
-    """Phases 2-10; returns the per-kernel result objects.  ``cases`` maps
+        parallel: dict = PARALLEL, fleet: dict = FLEET,
+        dry: dict = DRYRUN, dry_procs: list = None) -> list:
+    """Phases 2-11; returns the per-kernel result objects.  ``cases`` maps
     each kernel to its (compared, timed) cases.  ``steps`` x ``starts`` is
     the fit's depth, cut from 80 x 6 since the suite's nine model-step
     points of three archs made each of its evaluations ~5x costlier on
-    the card (a launch-bound autograd loop)."""
+    the card (a launch-bound autograd loop).  ``dry_procs``: phase 11's
+    processes if the caller started them (`start_dryrun`), else they are
+    started after phase 2; either way they end before phase 3."""
+    dry_dir = workdir.parent / f"{workdir.name}-dryrun"
     print("== phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
     phases = {"gemm": phase_gemm, "flash_attention": phase_attention,
@@ -3955,12 +4195,25 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     results = {name: phases[name](device, *cases[name]) for name in KERNELS}
     t1 = time.perf_counter()
     print(f"# phase 2: {t1 - t0:.2f}s")
-    # the main paths of slices 1 and 2: counts from zero, read right after
+    # phase 11's processes end here: no host-bound measurement of phases
+    # 3-10 shares the host with them
+    if dry_procs is None:
+        dry_procs = start_dryrun(device, dry, train, dry_dir)
+    try:
+        dry_done = _reap_dryrun(dry_procs, dry["timeout"])
+    finally:
+        stop_dryrun(dry_procs)
+    t2 = time.perf_counter()
+    print(f"# phase 11's processes waited for after phase 2: "
+          f"{t2 - t1:.2f}s")
+    t1 = t2
+    # the main paths of slices 1 and 2: counts from zero, read after
     mods = _reset_launches()
     out = phase_calibrate(device, spec, workdir, steps, starts)
     t2 = time.perf_counter()
-    print(f"# phase 3: {t2 - t1:.2f}s (measuring {out.stats.elapsed_s:.2f}s, "
-          f"the rest fit, reports and validate)")
+    print(f"# phase 3: {t2 - t1:.2f}s (measuring "
+          f"{out.stats.elapsed_s:.2f}s, the rest fit, reports and "
+          f"validate)")
     phase_predict(device, out.profile_path)
     phase_search(device, search)
     runner_dir = workdir.parent / f"{workdir.name}-runner"
@@ -3992,8 +4245,8 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     print(f"# phase 7 (a): {t6 - t5:.2f}s")
     mods = _reset_launches()
     phase7 = {}
-    expected = phase_train(device, train,
-                           workdir.parent / f"{workdir.name}-train", phase7)
+    expected = phase_train(device, train, workdir.parent
+                           / f"{workdir.name}-train", phase7)
     expected += phase_train_golden(device)
     expected += phase_remat(device, train["remat"])
     print(f"# phase 7: {time.perf_counter() - t5:.2f}s")
@@ -4020,6 +4273,12 @@ def run(device, spec, workdir: Path, cases: dict, serve_kw: dict,
     phase_fleet(device, runner, runner_dir, fleet)
     print(f"# phase 10: {time.perf_counter() - t9:.2f}s")
     _check_launches(mods, {}, device, "phase 10")
+    # this slice's path: the multi-pod dry-run (no launch: fake tensors)
+    t10 = time.perf_counter()
+    mods = _reset_launches()
+    phase_dryrun(dry_done, device, dry, train, phase7, dry_dir)
+    print(f"# phase 11: {time.perf_counter() - t10:.2f}s")
+    _check_launches(mods, {}, device, "phase 11")
     return [_row(name, launches[name] + more[name] + trained[name]
                  + fam[name] + meshed[name], results[name])
             for name in KERNELS]
@@ -4034,22 +4293,31 @@ def main() -> int:
     _port()
     from repro_torch.calibrate import microbench
     device = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    phase_setup()
-    print(f"# phase 1: {time.perf_counter() - t0:.2f}s")
-    spec = microbench.default_spec("slice", reps=3)
-    # the unit-test shapes and every shape the main paths give the kernels
-    cases = {
-        "gemm": (tuple(dict.fromkeys(UNIT_SHAPES + GEMM_EDGES
-                                     + spec.pallas_shapes)),
-                 microbench.QWEN_LAYER_SHAPES),
-        "flash_attention": (ATTN_UNIT + ATTN_PATH, ATTN_TIMED,
-                            ATTN_TIMED_FAMILIES),
-        "rglru_scan": (RGLRU_UNIT + RGLRU_PATH, RGLRU_PATH[:1]),
-        "mlstm_parallel": (MLSTM_UNIT + MLSTM_PATH, MLSTM_TIMED),
-    }
-    kernels = run(device, spec, ROOT / "build" / "chip_smoke", cases, SERVE,
-                  CHECK_LEN, RECURRENT)
+    workdir = ROOT / "build" / "chip_smoke"
+    # phase 11's processes run beside phases 1-2: the build, and kernels
+    # timed on the device (CUDA-graph replays), no host-bound measurement
+    dry_procs = start_dryrun(device, DRYRUN, TRAIN,
+                             workdir.parent / f"{workdir.name}-dryrun")
+    try:
+        t0 = time.perf_counter()
+        phase_setup()
+        print(f"# phase 1: {time.perf_counter() - t0:.2f}s")
+        spec = microbench.default_spec("slice", reps=3)
+        # the unit-test shapes and every shape the main paths give the
+        # kernels
+        cases = {
+            "gemm": (tuple(dict.fromkeys(UNIT_SHAPES + GEMM_EDGES
+                                         + spec.pallas_shapes)),
+                     microbench.QWEN_LAYER_SHAPES),
+            "flash_attention": (ATTN_UNIT + ATTN_PATH, ATTN_TIMED,
+                                ATTN_TIMED_FAMILIES),
+            "rglru_scan": (RGLRU_UNIT + RGLRU_PATH, RGLRU_PATH[:1]),
+            "mlstm_parallel": (MLSTM_UNIT + MLSTM_PATH, MLSTM_TIMED),
+        }
+        kernels = run(device, spec, workdir, cases, SERVE, CHECK_LEN,
+                      RECURRENT, dry_procs=dry_procs)
+    finally:                            # no dry-run outlives the script
+        stop_dryrun(dry_procs)
     print(f"# chip_smoke phases done in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

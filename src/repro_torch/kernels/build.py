@@ -11,7 +11,10 @@ needs a library builds it; `build` builds several at once, one ``nvcc``
 process per source, all started together.  `refuse_autograd` is the check
 the GEMM's wrapper makes before it launches: the GEMM has no backward
 (nothing trains through it; the other wrappers are autograd Functions);
-`check_aligned` the one the bf16 tensor-core kernels' wrappers add.
+`check_aligned` the one the bf16 tensor-core kernels' wrappers add;
+`no_data` tells the dry-run's tensors (fake or meta: shapes without
+data), which take a kernel's fake-tensor rule and launch nothing; the rule
+reports the call to the counters in `COUNTERS` through `kernel_call`.
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -34,6 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# the dry-run's active counters (`repro_torch.launch.counters.StepCounter`
+# adds itself while active): each has ``kernel_call(name, flops, nbytes)``
+COUNTERS: List = []
 
 
 def _nvcc() -> str:
@@ -116,6 +123,29 @@ def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
             f"not require grad")
 
 
+def no_data(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a shape without data (a fake tensor of the
+    dry-run, or a meta tensor): a kernel's wrapper then takes its
+    fake-tensor rule, which allocates the kernel's outputs, reports its
+    FLOPs and bytes through `kernel_call` and launches nothing."""
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+def kernel_call(name: str, flops: float, nbytes: float) -> None:
+    """A hand-written kernel's fake-tensor rule reports one call: its
+    formula FLOPs and bytes go to every active counter."""
+    for counter in COUNTERS:
+        counter.kernel_call(name, flops, nbytes)
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s data starts 16-byte aligned; for a tensor without
+    data, whether its offset into its storage is (a storage's base is)."""
+    if no_data(t):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0
+
+
 def check_aligned(name: str, **tensors: torch.Tensor) -> None:
     """The bf16 tensor-core kernels copy rows in 16-byte pieces
     (cp.async): each tensor's data must start 16-byte aligned and each
@@ -123,9 +153,11 @@ def check_aligned(name: str, **tensors: torch.Tensor) -> None:
     be a multiple of 8 elements.  Raises ValueError naming the start or
     the stride."""
     for arg, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: bf16 {arg} starts at "
-                             f"{t.data_ptr():#x}, not 16-byte aligned")
+        if not aligned16(t):
+            where = (f"offset {t.storage_offset()}" if no_data(t)
+                     else f"{t.data_ptr():#x}")
+            raise ValueError(f"{name}: bf16 {arg} starts at {where}, not "
+                             f"16-byte aligned")
         for dim, (n, s) in enumerate(zip(t.shape[:-1], t.stride()[:-1])):
             if n > 1 and s % 8:
                 raise ValueError(

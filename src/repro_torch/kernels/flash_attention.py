@@ -19,6 +19,13 @@ is the kernel, its backward the gradient of `attention_ref` recomputed
 from the saved q, k and v (the function the reference's training path
 differentiates), which holds one (b, h, sq, skv) float32 score matrix and
 its gradient at a time.  A backward kernel is ROADMAP queue 2 item 6.
+
+Tensors without data (the dry-run's fake or meta tensors,
+`build.no_data`) take the kernel's fake-tensor rule: the checks of a CUDA
+call, then the output the kernel allocates, its `flops` and `io_bytes`
+reported to the dry-run's counters (`build.kernel_call`), and no launch
+(`LAUNCHES` does not move); the backward's plain recompute runs on them as
+it is.
 """
 
 from __future__ import annotations
@@ -44,6 +51,23 @@ BACKWARD_SPAN = "repro_torch::flash_attention_backward"
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def flops(b: int, h: int, sq: int, skv: int, d: int,
+          pairs: Optional[int] = None) -> float:
+    """The kernel's FLOPs: q k^T and p v, 4 d per (query, key) pair of each
+    (batch, head).  ``pairs`` defaults to every pair, sq skv: the dense
+    products of the function, as the reference's jnp path computes them
+    (the dry-run's count); a bound passes the pairs the masks leave
+    visible (the kernel skips fully masked tiles)."""
+    return 4.0 * b * h * d * (sq * skv if pairs is None else pairs)
+
+
+def io_bytes(b: int, h: int, h_kv: int, sq: int, kv_len: int, d: int,
+             itemsize: int) -> float:
+    """The bytes the kernel must move: q read and the output written
+    (b, h, sq, d), k and v read up to ``kv_len`` keys."""
+    return float(itemsize * (2 * b * h * sq * d + 2 * b * h_kv * kv_len * d))
 
 
 _LIB = None
@@ -108,6 +132,12 @@ def _launch(q, k, v, causal, window, scale, q_offset, kv_len):
     _, h_kv, skv, _ = k.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    if build.no_data(q):                # the fake-tensor rule
+        kvl = skv if kv_len is None else min(int(kv_len), skv)
+        build.kernel_call("flash_attention", flops(b, h, sq, skv, d),
+                             io_bytes(b, h, h_kv, sq, kvl, d,
+                                      q.element_size()))
+        return out
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _lib()
@@ -166,8 +196,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the current stream or raise (bf16 ones must start 16-byte aligned,
     with strides that are multiples of 8), through `FlashAttention`, whose
     backward recomputes the plain version; CPU tensors take
-    `attention_ref`.  The CUDA output is laid out (b, sq, h, d) in memory
-    (a transposed view), which is the layout the output projection reads.
+    `attention_ref`; tensors without data take the fake-tensor rule
+    (the module's doc).  The CUDA output is laid out (b, sq, h, d) in
+    memory (a transposed view), which is the layout the output projection
+    reads.
     """
     _check(q, k, v, window, block_q, block_kv, q_offset, kv_len)
     b, h, sq, d = q.shape
@@ -175,7 +207,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset, kv_len=kv_len)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not build.no_data(q):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v need unit stride over "

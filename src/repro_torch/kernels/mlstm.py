@@ -20,12 +20,20 @@ the kernel, its backward the gradient of `mlstm_parallel_ref` recomputed
 from the saved inputs, to q, k, v, ``f_cum`` and ``log_i`` (the function
 the reference's training path differentiates, ``_mlstm_parallel``).  A
 backward kernel is ROADMAP queue 2 item 6.
+
+Tensors without data (the dry-run's fake or meta tensors,
+`build.no_data`) take the kernel's fake-tensor rule: the checks of a CUDA
+call, then the output the kernel allocates, its `flops` and `io_bytes`
+reported to the dry-run's counters (`build.kernel_call`), and no launch
+(`LAUNCHES` does not move); the backward's plain recompute runs on them as
+it is.
 """
 
 from __future__ import annotations
 
 import ctypes
 import numbers
+from typing import Optional
 
 import torch
 
@@ -44,6 +52,23 @@ BACKWARD_SPAN = "repro_torch::mlstm_parallel_backward"
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def flops(b: int, h: int, s: int, d: int,
+          pairs: Optional[int] = None) -> float:
+    """The kernel's FLOPs: q k^T and the weighted sum of v, 4 d per (query,
+    key) pair of each (batch, head).  ``pairs`` defaults to every pair,
+    s^2: the dense products of the function, as the reference's jnp path
+    computes them (the dry-run's count); a bound passes the causal pairs
+    (the kernel skips tiles above the diagonal)."""
+    return 4.0 * b * h * d * (s * s if pairs is None else pairs)
+
+
+def io_bytes(b: int, h: int, s: int, d: int, itemsize: int) -> float:
+    """The bytes the kernel must move: q, k, v read and the output written
+    (b, h, s, d) in their dtype, f_cum and log_i (b, h, s) read in
+    float32."""
+    return float(itemsize * 4 * b * h * s * d + 4 * 2 * b * h * s)
 
 
 _LIB = None
@@ -101,6 +126,10 @@ def _launch(q, k, v, f_cum, log_i):
     f_cum, log_i = f_cum.float(), log_i.float()
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    if build.no_data(q):                # the fake-tensor rule
+        build.kernel_call("mlstm_parallel", flops(b, h, s, d),
+                             io_bytes(b, h, s, d, q.element_size()))
+        return out
     strides = (ctypes.c_longlong * 18)(
         *(x for t in (q, k, v, out) for x in t.stride()[:3]),
         *f_cum.stride(), *log_i.stride())
@@ -152,15 +181,16 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the Hopper kernel on the current stream or raise
     (bf16 ones must start 16-byte aligned, with strides that are multiples
     of 8), through `MLSTMParallel`, whose backward recomputes the plain
-    version; CPU tensors take `mlstm_parallel_ref`.  The CUDA output is
-    laid out (b, s, h, d) in memory (a transposed view), the layout the
-    block's output projection reads.
+    version; CPU tensors take `mlstm_parallel_ref`, tensors without data
+    the fake-tensor rule (the module's doc).  The CUDA output is laid out
+    (b, s, h, d) in memory (a transposed view), the layout the block's
+    output projection reads.
     """
     _check(q, k, v, f_cum, log_i, block_q, block_kv)
     b, h, s, d = q.shape
     if q.device.type == "cpu":
         return mlstm_parallel_ref(q, k, v, f_cum, log_i)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not build.no_data(q):
         raise ValueError(f"mlstm_parallel: unsupported device {q.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("mlstm_parallel: q, k, v need unit stride over the "

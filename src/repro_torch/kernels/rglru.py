@@ -22,6 +22,13 @@ On the card the scan is differentiable (`RGLRUScan`): the adjoint of a
 first-order linear recurrence is the same recurrence run backward, so the
 backward launches the same kernel once more, on reversed inputs.  A
 forward and its backward are two launches.
+
+Tensors without data (the dry-run's fake or meta tensors,
+`build.no_data`) take the kernel's fake-tensor rule, in the forward and in
+the reversed backward alike: the checks of a CUDA call, then the output
+the kernel allocates, its `flops` and `io_bytes` reported to
+the dry-run's counters (`build.kernel_call`), and no launch (`LAUNCHES` and
+`LAST_VARIANT` do not move).
 """
 
 from __future__ import annotations
@@ -50,6 +57,18 @@ LAST_VARIANT: Optional[str] = None  # the last launch's; None on the host
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def flops(batch: int, seq: int, width: int) -> float:
+    """The kernel's FLOPs: a product and a sum per element."""
+    return 2.0 * batch * seq * width
+
+
+def io_bytes(batch: int, seq: int, width: int, itemsize: int) -> float:
+    """The bytes the kernel must move: a and b read in their dtype, h0
+    read and h written in float32."""
+    n = batch * seq * width
+    return float(itemsize * 2 * n + 4 * n + 4 * batch * width)
 
 
 _LIB = None
@@ -86,8 +105,8 @@ def kernel_variant(a: torch.Tensor, b: torch.Tensor) -> str:
     whole copies, 4 float32 or 8 bfloat16 channels, and both 16-byte
     aligned), else `ELEMENTWISE`."""
     per_copy = 16 // a.element_size()
-    if a.shape[-1] % per_copy == 0 \
-            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0:
+    if a.shape[-1] % per_copy == 0 and build.aligned16(a) \
+            and build.aligned16(b):
         return RING
     return ELEMENTWISE
 
@@ -101,6 +120,10 @@ def _launch(a: torch.Tensor, b: torch.Tensor,
     h0 = h0.to(torch.float32).contiguous()
     out = torch.empty((batch, seq, width), dtype=torch.float32,
                       device=a.device)
+    if build.no_data(a):                # the fake-tensor rule
+        build.kernel_call("rglru_scan", flops(batch, seq, width),
+                             io_bytes(batch, seq, width, a.element_size()))
+        return out
     variant = kernel_variant(a, b)
     lib = _lib()
     with torch.cuda.device(a.device):
@@ -169,7 +192,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     width), float32 or bfloat16.  Returns float32 (batch, seq, width).
     CUDA tensors launch the `kernel_variant` of the Hopper kernel on the
     current stream or raise, through `RGLRUScan` (whose backward launches
-    the kernel again, reversed); CPU tensors take `rglru_scan_ref`.
+    the kernel again, reversed); CPU tensors take `rglru_scan_ref`,
+    tensors without data the fake-tensor rule (the module's doc).
     """
     global LAST_BLOCK_T, LAST_VARIANT
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
@@ -194,7 +218,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     LAST_VARIANT = None
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" and not build.no_data(a):
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("rglru_scan: a and b must be contiguous")

@@ -9,7 +9,10 @@ ranks come from ``torchrun`` (``RANK`` / ``WORLD_SIZE`` /
 group the caller has already initialised (the tests use a ``FileStore``).
 ``cuda`` runs use NCCL, one card per rank; ``cpu`` runs use gloo, one
 host process per rank.  There is no fallback: a rank that finds no card
-on a ``cuda`` run raises.
+on a ``cuda`` run raises.  The one exception is the dry-run's fake group
+(``init_process_group("fake", ...)``, `repro_torch.launch.dryrun`), which
+stands for 256 or 512 ranks in one process and touches no device: a mesh
+over it takes the asked device type without looking for a card.
 
 Functions, not module constants, so importing this module touches no
 process group and no device.  `AbstractMesh` is a mesh's shape without
@@ -108,8 +111,11 @@ def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None,
     if len(axes) != len(shape):
         raise ValueError(f"mesh {shape}: {len(axes)} axis names {axes}")
     check_world(shape)
-    dev = resolve_device(device)
-    init_distributed(dev)
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dev = torch.device("cuda" if device is None else device)
+    else:
+        dev = resolve_device(device)
+        init_distributed(dev)
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 

@@ -174,6 +174,39 @@ def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
+def split_last(y: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """``y.reshape(*y.shape[:-1], n, size)``: the last dim split into
+    ``n`` heads of ``size``.  On a mesh, where the last dim's shards do not
+    divide ``n`` (8 kv heads on a 16-way ``model`` axis), it is gathered
+    first: DTensor splits a sharded dim only into whole heads per rank."""
+    if is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+        last = y.ndim - 1
+        k = 1
+        for i, p in enumerate(y.placements):
+            if p == Shard(last):
+                k *= y.device_mesh.size(i)
+        if n % k:
+            y = y.redistribute(y.device_mesh, tuple(
+                Replicate() if p == Shard(last) else p
+                for p in y.placements))
+    return y.reshape(*y.shape[:-1], n, size)
+
+
+def roll(x: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dim)``; on a mesh as its two slices joined
+    (not every torch's DTensor has a rule for ``roll``), ``dim`` being one
+    the placements do not shard."""
+    if not is_dtensor(x):
+        return torch.roll(x, shift, dims=dim)
+    n = x.shape[dim]
+    shift %= n
+    if not shift:
+        return x
+    return torch.cat([x.narrow(dim, n - shift, shift),
+                      x.narrow(dim, 0, n - shift)], dim=dim)
+
+
 def write_(dst: torch.Tensor, index: Tuple, src: torch.Tensor) -> None:
     """``dst[index] = src`` in place (a cache write).  On a mesh each rank
     writes its own shard: ``src`` takes ``dst``'s placements, and
@@ -274,8 +307,13 @@ def sinusoidal_positions(seq: int, d: int, device="cpu") -> torch.Tensor:
     """(seq, d) float32: sin then cos of pos / 10000^(2i/d), computed in
     float64 numpy as the reference's and rounded once, so the table is the
     reference's bit for bit.  Cached per (seq, d, device): callers read
-    it and never write it."""
-    return _sinusoidal(seq, d, str(torch.device(device)))
+    it and never write it.  A table for fake tensors (the dry-run's) is
+    made anew and never cached."""
+    dev = torch.device(device)
+    from torch._guards import detect_fake_mode
+    if dev.type == "meta" or detect_fake_mode() is not None:
+        return _sinusoidal(seq, d, "cpu").to(dev)
+    return _sinusoidal(seq, d, str(dev))
 
 
 @functools.lru_cache(maxsize=16)
@@ -338,21 +376,62 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
     """Mean next-token CE; logits (..., vocab), labels int (...,).  On a
-    mesh the logits keep their batch shards and gather the rest (the
-    vocabulary) before the lookup of each label; the mean reduces across
-    the batch shards."""
+    mesh, `_sharded_cross_entropy`."""
     if is_dtensor(logits):
-        from torch.distributed.tensor import Replicate, Shard
-        mesh = logits.device_mesh
-        pl = tuple(p if p == Shard(0) else Replicate()
-                   for p in logits.placements)
-        logits = logits.redistribute(mesh, pl)
-        if is_dtensor(labels):
-            labels = labels.redistribute(mesh, pl)
+        return _sharded_cross_entropy(logits, labels, z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
     loss = torch.mean(lse - picked)
     if z_loss:
         loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
+
+
+def _sharded_cross_entropy(logits, labels, z_loss: float):
+    """`cross_entropy` of DTensor logits, vocabulary-parallel: each rank
+    keeps its shard of the logits (rows and vocabulary), and where the
+    vocabulary is split over more than one rank the rows' max (no
+    gradient), sum of exponentials and label logit are summed across its
+    shards, so no rank holds a whole row of the vocabulary or its
+    gradient: lse = max + log(sum exp(x - max)), the one-device value up
+    to the order of the sums.  Where each rank holds whole rows, the
+    one-device formula runs on them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.parallel import shards
+    mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    pl = tuple(p if isinstance(p, Shard) else Replicate()
+               for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    rows = tuple(Replicate() if p == Shard(vdim) else p for p in pl)
+
+    def across_vocab(local, op):
+        parts = tuple(Partial(op) if p == Shard(vdim) else r
+                      for p, r in zip(pl, rows))
+        return DTensor.from_local(local, mesh, parts, run_check=False
+                                  ).redistribute(mesh, rows).to_local()
+
+    local = logits.to_local(grad_placements=pl).float()
+    lab = shards.to_placements(labels, mesh, rows).to_local().long()
+    if not any(p == Shard(vdim) and mesh.size(i) > 1
+               for i, p in enumerate(pl)):
+        # each rank holds whole rows: the one-device formula on them
+        lse = torch.logsumexp(local, dim=-1)
+        picked = torch.gather(local, -1, lab[..., None]).squeeze(-1)
+    else:
+        start, n = shards._offset(mesh, pl, vdim, logits.shape[vdim])
+        lab = lab - start
+        valid = (lab >= 0) & (lab < n)
+        m = across_vocab(local.detach().amax(-1), "max")
+        lse = m + torch.log(across_vocab(
+            torch.exp(local - m[..., None]).sum(-1), "sum"))
+        picked = torch.gather(local, -1, lab.clamp(0, n - 1)[..., None]
+                              ).squeeze(-1) * valid.to(local.dtype)
+        picked = across_vocab(picked, "sum")
+    loss = torch.mean(DTensor.from_local(lse - picked, mesh, rows,
+                                         run_check=False))
+    if z_loss:
+        loss = loss + z_loss * torch.mean(DTensor.from_local(
+            torch.square(lse), mesh, rows, run_check=False))
     return loss

@@ -149,22 +149,29 @@ def init_cache(cfg: ArchConfig, batch: int, enc_len: int,
 
 
 def prefill(params: Dict, frames: torch.Tensor, cfg: ArchConfig, *,
-            dtype: torch.dtype = torch.bfloat16) -> Dict:
+            dtype: torch.dtype = torch.bfloat16, rules=None, mesh=None,
+            caches: Dict = None) -> Dict:
     """Encode, then each decoder layer's cross K/V (with their biases)
-    into the cache; empty self caches.  One device: on a mesh the caches
-    are laid out by the caller (`repro_torch.launch.serve`)."""
-    enc_out = encode(params, frames, cfg)
+    into the cache; empty self caches.  ``caches`` (default
+    `init_cache`'s zeros) are written in place.  On a mesh (``rules``,
+    ``mesh``; DTensor parameters and frames) the encoder runs on the mesh
+    and the caller gives ``caches`` laid out by `sharding.cache_shardings`
+    (`repro_torch.launch.serve`, `repro_torch.launch.dryrun`): each rank
+    writes its own shards."""
+    enc_out = encode(params, frames, cfg, rules=rules, mesh=mesh)
     b, s = frames.shape[:2]
     nkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    caches = init_cache(cfg, b, s, dtype, frames.device)
+    if caches is None:
+        caches = init_cache(cfg, b, s, dtype, frames.device)
     for i in range(cfg.n_layers):
-        cp = common.tree_index(params["dec"], i)["cross"]
+        cp = common.layer_params(params["dec"], i)["cross"]
         for name in ("k", "v"):
             kv = enc_out @ cp[f"w{name}"].to(enc_out.dtype)
             if f"b{name}" in cp:
                 kv = kv + cp[f"b{name}"].to(enc_out.dtype)
-            caches["cross"][name][i] = kv.reshape(b, s, nkv, hd
-                                                  ).transpose(1, 2)
+            kv = common.split_last(kv, nkv, hd).transpose(1, 2)
+            common.write_(caches["cross"][name], (slice(i, i + 1),),
+                          kv[None])
     return caches
 
 

@@ -116,16 +116,25 @@ class Model:
         return logits, None, torch.zeros((), dtype=torch.float32,
                                          device=logits.device)
 
-    def prefill(self, params: Dict, batch: Dict) -> Dict:
+    def prefill(self, params: Dict, batch: Dict, caches: Optional[Dict] = None,
+                rules=None, mesh=None) -> Dict:
         """Caches of a forward over ``batch["tokens"]``, sized to it (KV
         caches and recurrent states); for the encoder-decoder, the encoded
-        ``batch["frames"]``' cross K/V and empty self caches."""
-        if self.kind == "encdec":
-            return encdec.prefill(params, batch["frames"], self.cfg)
+        ``batch["frames"]``' cross K/V and empty self caches.  ``caches``
+        (default `init_cache`'s) are filled in place; on a mesh the caller
+        gives them laid out by `repro_torch.parallel.sharding.
+        cache_shardings`."""
         if self.kind == "lstm":
             self._no_decode("prefill")
+        if self.kind == "encdec":
+            with replicating(mesh is not None):
+                return encdec.prefill(params, batch["frames"], self.cfg,
+                                      rules=rules, mesh=mesh, caches=caches)
         b, s = batch["tokens"].shape
-        return self.forward(params, batch, caches=self.init_cache(b, s))[1]
+        if caches is None:
+            caches = self.init_cache(b, s)
+        return self.forward(params, batch, caches=caches, rules=rules,
+                            mesh=mesh)[1]
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> Dict:

@@ -154,9 +154,18 @@ def dropped(topi: torch.Tensor, cfg: ArchConfig) -> int:
     return int(torch.clamp(counts - cap, min=0).sum())
 
 
+def _counts(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments per expert, float32 (``bincount`` with ``minlength``
+    ``e``, but of a size known before the data: the dry-run's fake
+    tensors take it)."""
+    flat = flat_e.reshape(-1).long()
+    return torch.zeros(e, dtype=torch.float32, device=flat.device) \
+        .index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                        device=flat.device))
+
+
 def _aux(probs: torch.Tensor, flat_e: torch.Tensor, e: int) -> torch.Tensor:
-    density = torch.bincount(flat_e.reshape(-1), minlength=e).float() \
-        / flat_e.numel()
+    density = _counts(flat_e, e) / flat_e.numel()
     mean_prob = probs.reshape(-1, e).mean(0)
     return e * torch.sum(density * mean_prob)
 
@@ -281,8 +290,8 @@ def _mesh_apply(params: Dict, x, cfg: ArchConfig, mesh
         out = out + _shared(params, x, cfg)
     # aux: this rank's expert counts and probability sums, summed over
     # the ranks that hold other tokens
-    counts = torch.bincount(flat_e.reshape(-1), minlength=e).float()
-    counts = DTensor.from_local(counts, xmesh, part, run_check=False)
+    counts = DTensor.from_local(_counts(flat_e, e), xmesh, part,
+                                run_check=False)
     psum = DTensor.from_local(probs.reshape(-1, e).sum(0), xmesh, part,
                               run_check=False)
     aux = e * torch.sum((counts / (t * kk)) * (psum / t))

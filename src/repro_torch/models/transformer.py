@@ -122,7 +122,7 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     """
     b, s, d = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = _proj(x, p["wq"], p.get("bq")).reshape(b, s, nh, hd)
+    q = common.split_last(_proj(x, p["wq"], p.get("bq")), nh, hd)
     if cross_cache_only:
         out = common.chunked_attention(
             q.transpose(1, 2), cache["k"].to(x.dtype),
@@ -131,8 +131,8 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
         return _proj(out, p["wo"]), cache
     src = kv_source if kv_source is not None else x
     skv = src.shape[1]
-    k = _proj(src, p["wk"], p.get("bk")).reshape(b, skv, nkv, hd)
-    v = _proj(src, p["wv"], p.get("bv")).reshape(b, skv, nkv, hd)
+    k = common.split_last(_proj(src, p["wk"], p.get("bk")), nkv, hd)
+    v = common.split_last(_proj(src, p["wv"], p.get("bv")), nkv, hd)
 
     if cfg.rope_theta:
         qpos = torch.arange(s, device=x.device) + (pos or 0)
@@ -159,8 +159,8 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                 # slot of absolute position p is p % W: place the tail so
                 # decode's `pos % W` indexing continues consistently
                 shift = (s - W) % W
-                kk = torch.roll(kk, shift, dims=2)
-                vv = torch.roll(vv, shift, dims=2)
+                kk = common.roll(kk, shift, 2)
+                vv = common.roll(vv, shift, 2)
             n = kk.shape[2]
             common.write_(cache["k"], (slice(None), slice(None),
                                        slice(0, n)), kk)

@@ -91,7 +91,7 @@ def slstm_defs(cfg: ArchConfig) -> Dict:
 
 def _split_heads(x: torch.Tensor, nh: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, nh, -1).transpose(1, 2)        # (b, nh, s, hd)
+    return common.split_last(x, nh, x.shape[-1] // nh).transpose(1, 2)
 
 
 def _up_down(p: Dict, h: torch.Tensor) -> torch.Tensor:
@@ -160,10 +160,10 @@ def mlstm_decode(p: Dict, x: torch.Tensor, state: Dict,
     nh, hd = _heads(cfg)
     # the reference's jnp multiplies by the scale rounded to x's dtype (a
     # weakly typed float), as the kernel does over a prompt; on the host
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, nh, hd) \
+    q = common.split_last(x @ p["wq"].to(x.dtype), nh, hd)[:, 0] \
         * torch.tensor(hd ** -0.5, dtype=x.dtype).item()
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, nh, hd).float()
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, nh, hd).float()
+    k = common.split_last(x @ p["wk"].to(x.dtype), nh, hd)[:, 0].float()
+    v = common.split_last(x @ p["wv"].to(x.dtype), nh, hd)[:, 0].float()
     q = q.float()
     x32 = x[:, 0].float()
     log_i = x32 @ p["wi"].float()                          # (b, nh)
@@ -224,7 +224,8 @@ def slstm_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                 return_state: bool = False):
     b, s, d = x.shape
     nh, hd = _heads(cfg)
-    gates = [g.reshape(b, s, nh, hd) for g in _slstm_gates(p, x.float())]
+    gates = [common.split_last(g, nh, hd)
+             for g in _slstm_gates(p, x.float())]
     r = _recurrent(p)
     carry = tuple(torch.zeros((b, nh, hd), dtype=torch.float32,
                               device=x.device) for _ in range(3)) \
@@ -256,7 +257,8 @@ def slstm_decode(p: Dict, x: torch.Tensor, state: Dict,
     """Returns the output and a new state (``state`` is left as it was)."""
     b = x.shape[0]
     nh, hd = _heads(cfg)
-    zifo = [g.reshape(b, nh, hd) for g in _slstm_gates(p, x[:, 0].float())]
+    zifo = [common.split_last(g, nh, hd)
+            for g in _slstm_gates(p, x[:, 0].float())]
     carry = (state["c"], state["n"], state["h"], state["m"])
     (c, n, h, m), hh = _slstm_step(_recurrent(p), carry, zifo)
     y = _up_down(p, hh.reshape(b, 1, nh * hd).to(x.dtype))

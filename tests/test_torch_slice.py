@@ -233,11 +233,14 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys,
             torch.set_num_threads(prev)
 
     monkeypatch.setattr(cs, "phase_fleet", one_thread_fleet)
+    # phase 11: one full-width cell of the CLI (a decode step, the
+    # quickest), beside phase 7 (b)'s step at smoke size
+    dry = dict(cs.DRYRUN, cli=(("qwen1.5-0.5b", "decode_32k", "single"),))
     rows = cs.run(torch.device("cpu"), spec, tmp_path / "cs", cases,
                   dict(batch=2, prompt_len=4, gen=2, use_reduced=True),
                   16, recurrent, steps=3, starts=2, search=search,
                   runner=runner, deepflow=deepflow, train=train,
-                  families=families, fleet=fleet)
+                  families=families, fleet=fleet, dry=dry)
     out = capsys.readouterr().out
     assert "gemm_pallas" in out and "total_s" in out
     assert "strategy       RC-1-16-d16-p1" in out
@@ -331,6 +334,19 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys,
     assert "claimed and committed in that order" in out
     assert "# phase 10: " in out and "# gemm kernel launches on phase 10: 0" \
         in out
+    assert "# phase 11's processes waited for after phase 2: " in out
+    assert "== phase 11: the multi-pod dry-run on fake tensors, the cpu " \
+        "path, 2 processes run together before phase 3; host rehearsal" \
+        in out
+    assert "  (b) dryrun_step: exit 0, " in out and "s CPU" in out
+    assert "-- (a) python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b " \
+        "--cell decode_32k --mesh single --device cpu: exit 0" in out
+    assert "  single (16, 16) (256 fake ranks), RC-1-16-d16-p1: " in out
+    assert "-- (b) phase 7 (b)'s step (qwen1.5-0.5b, (2, 16), f32, no " \
+        "remat) through _step_metrics" in out
+    assert "attention calls 0 against its flash_attention launches 0" in out
+    assert "# phase 11: " in out and "# flash_attention kernel launches " \
+        "on phase 11: 0" in out
     assert "4 decode steps from the prefill vs a forward" in out
     assert out.count("Model.prefill") == 4
     assert [r["name"] for r in rows] == ["gemm", "flash_attention",
@@ -378,6 +394,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert len(files) > 20
     assert REPO / "src" / "repro_torch" / "core" / "sweeppipeline.py" in files
     assert REPO / "src" / "repro_torch" / "launch" / "mesh.py" in files
+    for name in ("dryrun.py", "counters.py"):
+        assert REPO / "src" / "repro_torch" / "launch" / name in files
     for name in ("sweepfabric.py", "surrogate.py"):
         assert REPO / "src" / "repro_torch" / "core" / name in files
     walked = {f.parent.name for f in files}
