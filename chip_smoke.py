@@ -201,14 +201,23 @@ the sweep fabric and DeepFlow's surrogate exploration (``pathfind sweep
                qwen1.5-0.5b x train_4k on each production mesh,
                recurrentgemma-2b and qwen2-moe-a2.7b on the single pod),
                printing FLOPs per device, peak GiB beside the card's
-               memory, collectives and kernel calls of each record; (b)
-               phase 7 (b)'s own step (one device, no mesh, f32, no remat)
-               through ``dryrun._step_metrics``, its argument bytes and
+               memory, collectives and kernel calls of each record, and
+               holding recurrentgemma-2b prefill_32k's peak a rank to at
+               most 7.1 GiB (``DRYRUN["peak"]``: its logits
+               vocabulary-sharded on this torch too); (b) phase 7 (b)'s
+               own step (one device, no mesh, f32, no remat) through
+               ``dryrun._step_metrics``, its argument bytes and
                attention calls held to that phase's first timed step
                exactly (the real parameters', moments' and batch's
                bytes; the flash-attention launches the step made), its
                peak bytes printed against the step's
-               ``torch.cuda.max_memory_allocated``.
+               ``torch.cuda.max_memory_allocated``; then, in the same
+               process, qwen2-moe-a2.7b decode_32k on 16x16 cut to 2
+               layers through ``dryrun.port_collectives``,
+               its all-gather and all-reduce bytes a step held to at
+               most the reference's (``DRYRUN["moe_most"]``, the figures
+               tests/test_torch_dryrun_mesh_faults.py holds on the
+               host: the expert products run on the weights' shards).
 
 Every kernel's launch count is zeroed just before phases 3-5, 6, 7 (b)-(e),
 8, 9 (a) and 10, and read just after each; each must have risen by exactly
@@ -3663,7 +3672,18 @@ DRYRUN = dict(cli=(("qwen1.5-0.5b", "train_4k", "single"),
                    ("qwen1.5-0.5b", "train_4k", "multi"),
                    ("recurrentgemma-2b", "prefill_32k", "single"),
                    ("qwen2-moe-a2.7b", "decode_32k", "single")),
-              timeout=300)
+              timeout=300,
+              # held on the card's torch, as the CPU test tests/test_torch_
+              # dryrun_mesh_faults.py holds them on the host's: qwen2-moe-
+              # a2.7b decode_32k on 16x16 cut to 2 layers (arch, cell,
+              # mesh, layers), its all-gather and all-reduce bytes a step
+              # at most the reference's (its probe-corrected
+              # collective_bytes, CPU JAX); an (a) cell and the most
+              # bytes a rank its peak may reach
+              moe=("qwen2-moe-a2.7b", "decode_32k", "16x16", 2),
+              moe_most={"all-gather": 390541824, "all-reduce": 17112832},
+              peak=(("recurrentgemma-2b", "prefill_32k", "single"),
+                    7.1 * 2 ** 30))
 
 
 def _fleet_stats(d: Path) -> list:
@@ -3924,17 +3944,21 @@ def phase_fleet(device, runner: dict, workdir: Path,
 
 
 def dryrun_step(arch: str, batch: int, seq: int, use_reduced: bool,
-                device: str) -> None:
+                device: str, moe) -> None:
     """Phase 11 (b)'s process: phase 7 (b)'s train step (one device, no
     mesh, f32, no remat) through the dry-run's ``_step_metrics`` on
     ``device``'s path; prints its counts as one JSON line.  First the
     counter's planted check on this torch: a DTensor product on a fake
     16x16 group counts rank 0's local product once (DTensor's sharding
-    propagation runs the global one too)."""
+    propagation runs the global one too).  Last, for ``moe`` (arch,
+    cell, mesh, layers: ``DRYRUN["moe"]``), the bytes rank 0 receives in
+    a step of that cell cut to that depth, on the card's path
+    (``dryrun.port_collectives``), under the line's
+    ``moe_collectives``."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    from repro_torch.configs.base import ShapeCell, get_config, reduced
+    from repro_torch.configs.base import ShapeCell, get_config
     from repro_torch.launch import counters, dryrun, mesh as mesh_lib
     dev = dryrun.path_device(device)
     with dryrun.fake_group(256):
@@ -3947,14 +3971,18 @@ def dryrun_step(arch: str, batch: int, seq: int, use_reduced: bool,
             with counters.StepCounter((a, b)) as c:
                 a @ b
     assert c.flops == 2.0 * 8 * 1024 * 256, c.flops
-    cfg = get_config(arch)
-    cfg = reduced(cfg) if use_reduced else cfg
+    cfg = dryrun.cut_config(get_config(arch), use_reduced=use_reduced)
     m = dryrun._step_metrics(arch, ShapeCell("train", seq, batch, "train"),
                              None, (1, 1), True, cfg, remat=False,
                              device=device)
-    print(json.dumps({k: m[k] for k in ("flops", "bytes", "memory",
-                                        "kernels", "lower_s",
-                                        "compile_s")}))
+    out = {k: m[k] for k in ("flops", "bytes", "memory", "kernels",
+                             "lower_s", "compile_s")}
+    t0 = time.perf_counter()
+    moe_arch, cell, mesh, layers = moe
+    out["moe_collectives"] = dryrun.port_collectives(
+        moe_arch, cell, [int(x) for x in mesh.split("x")], layers)
+    out["moe_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
 
 
 def start_dryrun(device, dry: dict, train: dict, workdir: Path) -> list:
@@ -3980,7 +4008,7 @@ def start_dryrun(device, dry: dict, train: dict, workdir: Path) -> list:
                         "chip_smoke.dryrun_step(*json.loads(sys.argv[1]))",
                         json.dumps([train["arch"], train["batch"],
                                     train["seq"], train["use_reduced"],
-                                    path])]))
+                                    path, dry["moe"]])]))
     procs = []
     try:
         for i, (what, cmd) in enumerate(runs):
@@ -4050,6 +4078,7 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
         print(f"  {name}: exit {rc}, {wall:.2f}s wall, {cpu:.2f}s CPU")
     total = torch.cuda.get_device_properties(device).total_memory \
         if cuda else None
+    recs = {}
     for what, rc, _, _, out, err in done:
         if rc != 0:
             print(out[-3000:])
@@ -4065,7 +4094,8 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
               f"--cell {cell} --mesh {mesh} --device {path}: exit 0")
         for mk in (("single", "multi") if mesh == "both" else (mesh,)):
             tag = f"{arch}__{cell}__{mk}" + ("" if cuda else "__cpu")
-            rec = json.loads((workdir / f"{tag}.json").read_text())
+            rec = recs[(arch, cell, mk)] = json.loads(
+                (workdir / f"{tag}.json").read_text())
             assert rec["ok"] and rec["device"] == path, rec.get("traceback")
             mem, coll = rec["memory"], rec["collectives"]
             kinds = ", ".join(f"{k} {v / 2 ** 20:.1f} MiB"
@@ -4087,6 +4117,12 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
                   f"{rec['predicted_step_s'] * 1e3:.2f} ms a step")
             if cuda:
                 assert rec["kernels"].get("flash_attention", 0) > 0, rec
+    if cuda:
+        cell, most = dry["peak"]
+        peak = recs[cell]["memory"]["peak_bytes"]
+        assert peak <= most, (cell, recs[cell]["memory"], most)
+        print(f"-- (a) {' '.join(cell)}: peak {peak} bytes a rank, at most "
+              f"{most / 2 ** 30:.2f} GiB: held")
     step = phase7["step"]
     got = json.loads(done[-1][4].strip().splitlines()[-1])
     mem = got["memory"]
@@ -4099,6 +4135,17 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
           f"step's {step['arg_bytes']}; attention calls "
           f"{got['kernels'].get('flash_attention', 0)} against its "
           f"flash_attention launches {step['attention_launches']}")
+    arch, cell, mesh, layers = dry["moe"]
+    coll = got["moe_collectives"]
+    kinds = ", ".join(f"{k} {v / 2 ** 20:.3f} MiB"
+                      for k, v in coll.items() if k != "count")
+    print(f"-- (b) {arch} {cell} on {mesh} cut to {layers} layers, "
+          f"rank 0's bytes received a step ({got['moe_s']:.2f}s): "
+          f"{kinds}; {coll['count']} collectives")
+    for kind, most in dry["moe_most"].items():
+        assert coll[kind] <= most, (kind, coll, most)
+        print(f"  {kind} {coll[kind]:.0f} bytes, at most the "
+              f"reference's {most}: held")
     assert mem["argument_bytes"] == step["arg_bytes"], (mem, step)
     assert got["kernels"].get("flash_attention", 0) == \
         step["attention_launches"], (got["kernels"], step)

@@ -52,6 +52,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
@@ -62,7 +63,7 @@ import torch.distributed as dist
 
 from repro_torch import optim
 from repro_torch.configs.base import ARCH_IDS, SHAPE_CELLS, ShapeCell, \
-    applicable_cells, get_config
+    applicable_cells, get_config, reduced
 from repro_torch.core import planner as planner_lib
 from repro_torch.launch import counters, mesh as mesh_lib
 from repro_torch.launch.train import make_train_step
@@ -270,6 +271,31 @@ def _step_metrics(arch, cell, mesh, mesh_shape, fsdp, cfg_override,
         "memory": memory, "kernels": dict(counter.kernels),
         "lower_s": round(t_build, 2), "compile_s": round(t_step, 2),
     }
+
+
+def cut_config(cfg, layers: Optional[int] = None,
+               use_reduced: bool = False):
+    """``cfg`` at `reduced` size with ``use_reduced``, and cut to
+    ``layers`` layers (its widths kept)."""
+    if use_reduced:
+        cfg = reduced(cfg)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def port_collectives(arch: str, cell_name: str, mesh_shape,
+                     layers: Optional[int] = None,
+                     use_reduced: bool = False) -> Dict:
+    """The bytes rank 0 receives per collective kind (and their
+    ``count``) in one step of the cell on a fake group of the mesh's
+    ranks, the card's path, in this process; the arch cut as
+    `cut_config` cuts it."""
+    shape = tuple(mesh_shape)
+    cfg = cut_config(get_config(arch), layers, use_reduced)
+    with fake_group(math.prod(shape)):
+        mesh = mesh_lib.make_mesh(shape, device="cuda")
+        return _step_metrics(arch, cell_name, mesh, shape, True, cfg)["coll"]
 
 
 def _probe_configs(cfg):

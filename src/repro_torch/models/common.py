@@ -141,28 +141,64 @@ def tree_index(tree, i: int):
 DP_AXES = ("pod", "data")
 
 
-def gather_dp(tree):
+def _gather_one(t):
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if name in DP_AXES else p for name, p in
+               zip(t.device_mesh.mesh_dim_names, t.placements))
+    if pl == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, pl)
+
+
+def gather_dp(tree, keep=()):
     """Parameters ready for use: each DTensor leaf's shards over the DP
     axes (``fsdp`` -> ``data``: ZeRO-style storage) gathered, its shards
     over ``model`` (tensor parallelism) kept; GSPMD's gather of an
     FSDP-sharded weight before its product.  The gradient goes back to
-    the stored layout as a reduce-scatter.  Plain tensors as they are."""
-    def one(t):
-        if not is_dtensor(t):
-            return t
-        from torch.distributed.tensor import Replicate
-        pl = tuple(Replicate() if name in DP_AXES else p for name, p in
-                   zip(t.device_mesh.mesh_dim_names, t.placements))
-        if pl == tuple(t.placements):
-            return t
-        return t.redistribute(t.device_mesh, pl)
-    return tree_map(one, tree)
+    the stored layout as a reduce-scatter.  Plain tensors as they are, and
+    the subtrees under a key in ``keep`` as they are stored (their
+    module moves them itself)."""
+    if keep and isinstance(tree, dict):
+        return {k: v if k in keep else gather_dp(v, keep)
+                for k, v in tree.items()}
+    return tree_map(_gather_one, tree)
 
 
-def layer_params(tree, i: int):
+def layer_params(tree, i: int, keep=()):
     """Layer ``i``'s parameters from a stacked tree, ready for use
-    (`gather_dp`: one layer gathered at a time)."""
-    return gather_dp(tree_index(tree, i))
+    (`gather_dp`: one layer gathered at a time, ``keep`` as stored)."""
+    return gather_dp(tree_index(tree, i), keep)
+
+
+def head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """An LM head's ``x @ w`` in x's dtype, ``w`` (d, vocab).  On a mesh
+    ``w`` is cast on each rank's shard, then put in its rule's layout with
+    d whole (the vocabulary split where the rule splits it, over
+    ``model``), and ``x`` is made whole on d and on each mesh dim that
+    splits the vocabulary (a partial sum there reduced first); the
+    product runs on the local shards, so the logits come out split as the
+    vocabulary is, whatever DTensor's strategies, and no rank holds a
+    whole vocabulary row.  In the backward, ``x``'s gradient is a partial
+    sum over the vocabulary's shards and ``w``'s over the rows'."""
+    w = w.to(x.dtype)
+    if not is_dtensor(x):
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, last = x.device_mesh, x.ndim - 1
+    vocab = tuple(p == Shard(1) for p in w.placements)
+    xpl = tuple(Replicate() if v or not p.is_shard() or p.dim == last else p
+                for v, p in zip(vocab, x.placements))
+    xl = x.redistribute(mesh, xpl).to_local(grad_placements=tuple(
+        Partial() if v else p for v, p in zip(vocab, xpl)))
+    wl = w.redistribute(mesh, tuple(
+        Shard(1) if v else Replicate() for v in vocab)).to_local(
+        grad_placements=tuple(Shard(1) if v else Partial() if p.is_shard()
+                              else Replicate() for v, p in zip(vocab, xpl)))
+    return DTensor.from_local(xl @ wl, mesh, tuple(
+        Shard(last) if v else p for v, p in zip(vocab, xpl)),
+        run_check=False)
 
 
 def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

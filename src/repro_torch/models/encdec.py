@@ -111,7 +111,7 @@ def _embed_tokens(params, cfg, tokens):
 def _logits(params, cfg, x):
     x = common.norm(cfg.norm_kind, x, params["dec_norm"])
     return common.mask_padded_vocab(
-        (x @ common.gather_dp(params["embed"].t()).to(x.dtype)).float(),
+        common.head_logits(x, params["embed"].t()).float(),
         cfg.vocab_size)
 
 

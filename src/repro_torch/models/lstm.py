@@ -61,7 +61,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     for i in range(cfg.n_layers):
         x = _lstm_layer(lp["wx"][i], lp["wh"][i], lp["b"][i], x)
     return common.mask_padded_vocab(
-        (x @ common.gather_dp(params["head"]).to(x.dtype)).float(),
+        common.head_logits(x, params["head"]).float(),
         cfg.vocab_size)
 
 

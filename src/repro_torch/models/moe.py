@@ -26,15 +26,24 @@ casts its own expert weights to the activation dtype.
 Auxiliary load-balancing loss (Switch / GShard): E * sum_e f_e * p_e.
 
 On a mesh (DTensor ``x``, `_mesh_apply`): the routing and the index math
-stay on each rank's tokens and the expert products are DTensor products,
-as the reference's GSPMD partitions them.  ``grouped_tp`` takes G =
-``cfg.moe_groups`` or the DP degree (``data`` x ``pod``, the reference's
-rule), so each DP shard dispatches its own groups and the only
-collective left is the down-projection's reduction over ``model`` (the
-experts' hidden dim).  ``scatter_ep`` keeps one buffer for all tokens:
-every rank routes the whole batch and the experts are computed where the
-``experts`` axis puts them (EP over ``model``), then gathered.  The aux
-loss sums each rank's expert counts and probabilities across shards.
+stay on each rank's tokens, and the expert weights stay in their stored
+shards (`common.gather_dp` leaves the `IN_PLACE` subtree; each rank
+casts its own shard): the expert products run where the weights lie
+(`_expert_product`), as the reference's GSPMD partitions them.
+``grouped_tp`` takes G = ``cfg.moe_groups`` or the DP degree (``data`` x
+``pod``, the reference's rule), so each DP shard dispatches its own
+groups: the weights, in the activation dtype, are gathered over the DP
+axes, and the only collective left on the products is the
+down-projection's reduction over ``model`` (the experts' hidden dim).
+``scatter_ep`` keeps one buffer for all tokens: every rank routes the
+whole batch; the experts are computed where the ``experts`` axis puts
+them (EP over ``model``), and each rank contracts its ``fsdp`` slice of
+d, so the up-projection's partial sums are reduced over ``data`` and the
+down-projection's d shards gathered (a decode step's few tokens move,
+not the weights).  Where an expert's slots outnumber what its weights
+would cost to gather (`gathers_weights`: a training or prefill step's
+many tokens), the weights are gathered over the DP axes instead.  The
+aux loss sums each rank's expert counts and probabilities across shards.
 """
 
 from __future__ import annotations
@@ -46,6 +55,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef
+
+# the subtree of an MoE layer's parameters that `common.gather_dp` leaves
+# in its stored shards: `_mesh_apply` decides how the expert weights move
+IN_PLACE = ("experts",)
 
 
 def moe_defs(cfg: ArchConfig) -> Dict:
@@ -227,10 +240,46 @@ def _groups(cfg: ArchConfig, t: int, mesh) -> int:
     return g
 
 
+def gathers_weights(slots: int, d: int, fi: int, fo: int) -> bool:
+    """Whether `_mesh_apply` gathers the expert weights over the DP axes
+    rather than move the products' activations: where an expert's
+    ``slots`` (all groups' capacity) times what each moves (its partial
+    sums of the up-projection's ``fi`` columns and its ``d`` outputs)
+    outnumber the elements of its weights (d x fi + fo x d)."""
+    return slots * (fi + d) > d * (fi + fo)
+
+
+def _expert_product(a, w, bpl):
+    """``einsum("geck,ekn->gecn", a, w)`` of DTensors, computed where the
+    weight ``w`` lies: on each mesh dim that splits w's experts, its k or
+    its n, ``a`` takes the matching split (a local slice where it is whole
+    there) and the product comes out split over the experts, as a partial
+    sum over k, or split over n; on the mesh dims that keep ``w`` whole,
+    ``a`` and the product keep the tokens' placements ``bpl``.  No weight
+    moves.  In the backward, ``a``'s gradient is a partial sum over n's
+    shards and ``w``'s over the tokens' shards, so each reaches its stored
+    layout."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    split = {0: (Shard(1), Shard(1)), 1: (Shard(3), Partial()),
+             2: (Replicate(), Shard(3))}    # w's dim -> (a, product)
+    a_pl, o_pl, a_grad, w_grad = [], [], [], []
+    for p, b in zip(w.placements, bpl):
+        ap, op = split[p.dim] if p.is_shard() else (b, b)
+        a_pl.append(ap)
+        o_pl.append(op)
+        a_grad.append(Partial() if p == Shard(2) else ap)
+        w_grad.append(Partial() if b.is_shard() else p)
+    al = a.redistribute(a.device_mesh, tuple(a_pl)).to_local(
+        grad_placements=tuple(a_grad))
+    wl = w.to_local(grad_placements=tuple(w_grad))
+    return DTensor.from_local(torch.einsum("geck,ekn->gecn", al, wl),
+                              a.device_mesh, tuple(o_pl), run_check=False)
+
+
 def _mesh_apply(params: Dict, x, cfg: ArchConfig, mesh
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`moe_apply` on DTensors: the dispatch on each rank's tokens, the
-    expert products as DTensor products (see the module docstring)."""
+    expert products where the weights lie (see the module docstring)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     grouped = cfg.moe_impl == "grouped_tp"
     b, s, d = x.shape
@@ -246,8 +295,7 @@ def _mesh_apply(params: Dict, x, cfg: ArchConfig, mesh
         ndp *= xmesh.size(i) if p == Shard(0) else 1
     if not grouped or g % ndp or b % ndp:
         bpl, ndp = (Replicate(),) * xmesh.ndim, 1
-    x = x.redistribute(xmesh, bpl)
-    xl = x.to_local()
+    xl = x.redistribute(xmesh, bpl).to_local()
     gl, tl = max(g // ndp, 1), t // g
     xt = xl.reshape(gl, tl, d)
     # the router on each rank's tokens: its gradient is Partial over them
@@ -265,14 +313,25 @@ def _mesh_apply(params: Dict, x, cfg: ArchConfig, mesh
     buf = buf.scatter(1, slot[..., None].expand(-1, -1, d), src)
     buf = buf[:, :-1].reshape(gl, e, cap, d)
 
-    # the expert products on the mesh: TP over the hidden dim (grouped_tp)
-    # or EP over the experts (scatter_ep), reduced back to the tokens'
-    # layout
+    # each rank's weight shards cast, then gathered only over the mesh
+    # dims that split the tokens and, past `gathers_weights`, the DP dims
     buf = DTensor.from_local(buf, xmesh, bpl, run_check=False)
-    wi = params["experts"]["wi"].to(xl.dtype)
-    wo = params["experts"]["wo"].to(xl.dtype)
-    h = _act(torch.einsum("gecd,edf->gecf", buf, wi), cfg.ffn_kind)
-    out_buf = torch.einsum("gecf,efd->gecd", h, wo)
+    wi = params["experts"]["wi"].to(xl.dtype)       # (e, d, F)
+    wo = params["experts"]["wo"].to(xl.dtype)       # (e, f, d)
+    heavy = gathers_weights(buf.shape[0] * buf.shape[2], d, wi.shape[2],
+                            wo.shape[1])
+    whole = tuple(b.is_shard() or (heavy and name in common.DP_AXES)
+                  for name, b in zip(xmesh.mesh_dim_names, bpl))
+    wi, wo = (w.redistribute(xmesh, tuple(
+        Replicate() if gather else p
+        for gather, p in zip(whole, w.placements))) for w in (wi, wo))
+    h = _expert_product(buf, wi, bpl)
+    # the hidden dim summed, and whole where swiglu halves it
+    h = h.redistribute(xmesh, tuple(
+        Replicate() if p.is_partial() or (p == Shard(3)
+                                          and cfg.ffn_kind == "swiglu")
+        else p for p in h.placements))
+    out_buf = _expert_product(_act(h, cfg.ffn_kind), wo, bpl)
     out_buf = out_buf.redistribute(xmesh, bpl).to_local()
 
     flat_out = out_buf.reshape(gl, e * cap, d)
@@ -287,7 +346,7 @@ def _mesh_apply(params: Dict, x, cfg: ArchConfig, mesh
     out = DTensor.from_local(out.reshape(xl.shape), xmesh, bpl,
                              run_check=False)
     if cfg.n_shared_experts:
-        out = out + _shared(params, x, cfg)
+        out = out + _shared(params, x, cfg)     # on the tokens' own shards
     # aux: this rank's expert counts and probability sums, summed over
     # the ranks that hold other tokens
     counts = DTensor.from_local(_counts(flat_e, e), xmesh, part,

@@ -274,6 +274,15 @@ def _store(cache: Dict, state: Dict) -> Dict:
     return cache
 
 
+def _residual(x: torch.Tensor, r: torch.Tensor, rules, mesh) -> torch.Tensor:
+    """``x + r``, ``r`` first put in the residual stream's layout (on a
+    mesh: a row-parallel product's partial sums reduced), so that the
+    stream stays whole on d, as the reference's compiler keeps it,
+    whatever DTensor's strategies for the sum."""
+    return x + common.logical(r, ("batch", "act_seq", "act_embed"), rules,
+                              mesh)
+
+
 def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
                 attn_kind: str, *, cache=None, pos: Optional[int] = None,
                 rules=None, mesh=None
@@ -288,16 +297,13 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         a, new_cache = attention_apply(p["attn"], h, cfg, causal=True,
                                        window=window, cache=cache, pos=pos,
                                        rules=rules, mesh=mesh)
-        x = x + a
+        x = _residual(x, a, rules, mesh)
         h = common.norm(cfg.norm_kind, x, p["ln2"])
         if cfg.is_moe:
             f, aux = moe_lib.moe_apply(p["moe"], h, cfg, rules, mesh)
         else:
             f = ffn_apply(p["ffn"], h, cfg, rules, mesh)
-        x = x + f
-        x = common.logical(x, ("batch", "act_seq", "act_embed"), rules,
-                           mesh)
-        return x, new_cache, aux
+        return _residual(x, f, rules, mesh), new_cache, aux
     if kind == "rglru":
         if cache is None:                                  # train
             r = rglru_lib.rglru_apply(p["rec"], h, cfg)
@@ -308,9 +314,10 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         else:                                              # decode
             r, state = rglru_lib.rglru_decode(p["rec"], h, cache, cfg)
             _store(cache, state)
-        x = x + r
+        x = _residual(x, r, rules, mesh)
         h = common.norm(cfg.norm_kind, x, p["ln2"])
-        return x + ffn_apply(p["ffn"], h, cfg, rules, mesh), cache, aux
+        return _residual(x, ffn_apply(p["ffn"], h, cfg, rules, mesh), rules,
+                         mesh), cache, aux
     if kind == "mlstm":
         if pos is None:
             r = xlstm_lib.mlstm_apply(p["mlstm"], h, cfg)
@@ -320,7 +327,7 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         else:                                              # decode
             r, state = xlstm_lib.mlstm_decode(p["mlstm"], h, cache, cfg)
             _store(cache, state)
-        return x + r, cache, aux
+        return _residual(x, r, rules, mesh), cache, aux
     if kind == "slstm":
         if cache is None:                                  # train
             r = xlstm_lib.slstm_apply(p["slstm"], h, cfg)
@@ -331,7 +338,7 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         else:                                              # decode
             r, state = xlstm_lib.slstm_decode(p["slstm"], h, cache, cfg)
             _store(cache, state)
-        return x + r, cache, aux
+        return _residual(x, r, rules, mesh), cache, aux
     raise ValueError(kind)
 
 
@@ -376,9 +383,8 @@ def _embed(params, cfg, tokens, embeds=None, rules=None, mesh=None):
 
 
 def _head(params, cfg, x):
-    w = common.gather_dp(params["embed"].t() if cfg.tie_embeddings
-                         else params["head"])
-    logits = x @ w.to(x.dtype)
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    logits = common.head_logits(x, w)
     logits = common.softcap(logits.float(), cfg.logits_softcap)
     return common.mask_padded_vocab(logits, cfg.vocab_size)
 
@@ -389,14 +395,14 @@ def _units(params, caches, cfg):
     block cache or None, block kind, attn kind)."""
     pat, n_groups, rem = group_layout(cfg)
     for g in range(n_groups):
-        gp = common.layer_params(params["groups"], g)
+        gp = common.layer_params(params["groups"], g, moe_lib.IN_PLACE)
         gc = common.tree_index(caches["groups"], g) if caches else None
         yield True, [(gp[f"b{j}"], gc[f"b{j}"] if gc else None, bk, ak)
                      for j, (bk, ak) in enumerate(pat)]
     for j in range(rem):
         c = caches["rem"][f"b{j}"] if caches else None
-        yield False, [(common.gather_dp(params["rem"][f"b{j}"]), c,
-                       *pat[j])]
+        yield False, [(common.gather_dp(params["rem"][f"b{j}"],
+                                        moe_lib.IN_PLACE), c, *pat[j])]
 
 
 def _layers(params, caches, cfg):

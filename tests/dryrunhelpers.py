@@ -15,16 +15,26 @@ request ``dot_flops`` (a walk of the step's jaxpr: 2 m n k for each
 ``cost_analysis`` counts a loop body once), ``memory`` (the compiled
 step's ``memory_analysis``), ``collectives`` (the reference's record's
 ``collectives``: its ``collective_bytes``, the layer groups corrected by
-its probes as its `run_cell` corrects them) and ``record_keys`` (the keys
+its probes as its `run_cell` corrects them, with ``flops``, its XLA
+FLOPs a device corrected alike) and ``record_keys`` (the keys
 of the reference's `run_cell` record).  ``--reduced`` cuts the arch to
 `reduced` size, ``--layers N`` to N layers at its widths.
 
     python tests/dryrunhelpers.py --compare-collectives ARCH CELL MESH
-        [--reduced] [--layers N]
+        [--reduced] [--layers N] [--moe-layout in-place|gathered]
 
 prints, per collective kind, the MiB rank 0 receives in one step of the
-port's dry-run (`port_collectives`) beside the reference's.  The mesh's axes are ``Auto`` (``launch/mesh.make_mesh``
-builds ``Explicit`` ones on this JAX, which ``with_sharding_constraint``
+port's dry-run (``repro_torch.launch.dryrun.port_collectives``) beside
+the reference's, and the expert layouts the port's MoE layers took
+(``--moe-layout`` forces one: `meshhelpers.expert_layouts`);
+
+    python tests/dryrunhelpers.py --port-ops ARCH CELL MESH [--reduced]
+        [--layers N]
+
+prints the port's dot FLOPs of one step by op and local operand shapes
+(`port_ops`: which products a mesh runs whole on every rank).  The
+reference's mesh axes are ``Auto`` (``launch/mesh.make_mesh`` builds
+``Explicit`` ones on this JAX, which ``with_sharding_constraint``
 refuses) and the reference's bucketing is off (its bucketed evaluator
 reads ``jax.core.Literal``, which this JAX lacks).
 """
@@ -150,7 +160,9 @@ def main(argv) -> None:
         pm = {name: dryrun._compile_metrics(arch, cell_name, mesh, shape,
                                             True, pcfg)
               for name, pcfg in probes.items()}
-        out["collectives"] = dryrun._corrected(full, pm, combine)["coll"]
+        corrected = dryrun._corrected(full, pm, combine)
+        out["collectives"] = corrected["coll"]
+        out["flops"] = corrected["flops"]
     if "--keys" in argv:
         kind = {2: "single", 3: "multi"}[len(shape)]
         out["record_keys"] = record_keys(dryrun, arch, cell_name, kind)
@@ -173,27 +185,61 @@ def reference(arch: str, cell_name: str, mesh_txt: str, *flags) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def port_collectives(arch: str, cell_name: str, mesh_txt: str,
-                     flags) -> dict:
-    """The port's ``collectives`` for one step of the cell on a fake group
-    of the mesh's ranks (the card's path), in this process; ``flags`` as
+def _port_cut(flags) -> dict:
+    """`dryrun.cut_config`'s arguments from ``--reduced`` and
+    ``--layers N``."""
+    layers = int(flags[flags.index("--layers") + 1]) \
+        if "--layers" in flags else None
+    return dict(layers=layers, use_reduced="--reduced" in flags)
+
+
+def port_ops(arch: str, cell_name: str, mesh_txt: str, flags) -> dict:
+    """The port's dot FLOPs for one step of the cell on a fake group of
+    the mesh's ranks (the card's path), by op and rank 0's local operand
+    shapes, with the step's total under ``"total"``; ``flags`` as
     `main`'s ``--reduced`` and ``--layers N``."""
-    from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch import dryrun, mesh as mesh_lib
+    import collections
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import counters, dryrun, mesh as mesh_lib
     shape = tuple(int(x) for x in mesh_txt.split("x"))
-    cfg = _cut(get_config(arch), flags, reduced)
-    with dryrun.fake_group(math.prod(shape)):
-        mesh = mesh_lib.make_mesh(shape, device="cuda")
-        return dryrun._step_metrics(arch, cell_name, mesh, shape, True,
-                                    cfg)["coll"]
+    cfg = dryrun.cut_config(get_config(arch), **_port_cut(flags))
+    by_op = collections.Counter()
+    count = counters.StepCounter._count
+
+    def counted(self, func, args, kwargs, out):
+        before = self.flops
+        count(self, func, args, kwargs, out)
+        if self.flops != before:
+            key = (func._overloadpacket.__name__,) + tuple(
+                tuple(a.shape) for a in args if hasattr(a, "shape"))
+            by_op[str(key)] += self.flops - before
+
+    counters.StepCounter._count = counted
+    try:
+        with dryrun.fake_group(math.prod(shape)):
+            mesh = mesh_lib.make_mesh(shape, device="cuda")
+            m = dryrun._step_metrics(arch, cell_name, mesh, shape, True, cfg)
+    finally:
+        counters.StepCounter._count = count
+    return dict(by_op.most_common(), total=m["flops"])
 
 
 def compare_collectives(argv) -> None:
+    from meshhelpers import expert_layouts
+    from repro_torch.launch import dryrun
     arch, cell_name, mesh_txt = argv[:3]
     flags = argv[3:]
+    force = None
+    if "--moe-layout" in flags:
+        i = flags.index("--moe-layout")
+        force = {"in-place": False, "gathered": True}[flags[i + 1]]
+        flags = flags[:i] + flags[i + 2:]
     ref = reference(arch, cell_name, mesh_txt, "--collectives",
                     *flags)["collectives"]
-    port = port_collectives(arch, cell_name, mesh_txt, flags)
+    with expert_layouts(force) as took:
+        port = dryrun.port_collectives(
+            arch, cell_name, [int(x) for x in mesh_txt.split("x")],
+            **_port_cut(flags))
     print(f"{arch} {cell_name} {mesh_txt} {' '.join(flags)}: MiB rank 0 "
           f"receives in a step")
     print(f"  {'kind':20s} {'port':>14s} {'reference':>14s}")
@@ -203,10 +249,22 @@ def compare_collectives(argv) -> None:
         else:
             print(f"  {kind:20s} {port[kind] / 2 ** 20:14.3f} "
                   f"{ref[kind] / 2 ** 20:14.3f}")
+    print(f"  {'total':20s} "
+          f"{sum(v for k, v in port.items() if k != 'count') / 2 ** 20:14.3f}"
+          f" {sum(ref[k] for k in port if k != 'count') / 2 ** 20:14.3f}")
+    if took:
+        layouts = sorted({"gathered" if t else "in-place" for t in took})
+        print(f"  the port's MoE layers' expert weights: {', '.join(layouts)}"
+              + (" (forced)" if force is not None else ""))
 
 
 if __name__ == "__main__":
+    # the repo's packages importable however the script is started
+    sys.path.insert(1, str(__import__("pathlib").Path(__file__).resolve()
+                           .parents[1] / "src"))
     if sys.argv[1] == "--compare-collectives":
         compare_collectives(sys.argv[2:])
+    elif sys.argv[1] == "--port-ops":
+        print(json.dumps(port_ops(*sys.argv[2:5], sys.argv[5:])))
     else:
         main(sys.argv[1:])

@@ -25,7 +25,8 @@ BATCH, SEQ, STEPS, LR = 4, 16, 3, 1e-3
 
 def _entry(rank, fn, world, tmp, args):
     torch.set_num_threads(1)
-    store = dist.FileStore(os.path.join(tmp, f"store_{fn.__name__}"), world)
+    store = dist.FileStore(os.path.join(tmp, f"store_{fn.__name__}_{world}"),
+                           world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
         fn(rank, tmp, *args)
@@ -291,6 +292,40 @@ def group_2x2(rank, tmp):
 
 def group_4x2(rank, tmp):
     dense(rank, tmp, (4, 2))
+
+
+@contextlib.contextmanager
+def expert_layouts(force=None):
+    """Each expert layout `moe._mesh_apply` takes inside the block, in the
+    list yielded (`moe.gathers_weights`: True gathers the weights over the
+    DP axes, False keeps them in place); with ``force`` that layout is
+    taken instead of the rule's."""
+    from repro_torch.models import moe
+    rule, took = moe.gathers_weights, []
+
+    def recorded(*args):
+        took.append(rule(*args) if force is None else force)
+        return took[-1]
+
+    moe.gathers_weights = recorded
+    try:
+        yield took
+    finally:
+        moe.gathers_weights = rule
+
+
+def moe_cases(rank, tmp, arch, shape, cases):
+    """`mesh_loss` with every gradient of ``arch`` on a mesh of ``shape``
+    for each (name, config overrides) of ``cases``; inputs and outputs
+    under ``<name><rows>x<cols>``, the expert layouts each case took
+    (`expert_layouts`) with its output."""
+    for name, kw in cases:
+        tag = "%s%dx%d" % ((name,) + shape)
+        with expert_layouts() as took:
+            mesh_loss(rank, tmp, arch, shape, tag, kw, grads=True)
+        if rank == 0:
+            out = load(tmp, f"{tag}_out")
+            save(tmp, f"{tag}_out", dict(out, layouts=took))
 
 
 def params_leaves(tree):

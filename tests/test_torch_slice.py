@@ -345,6 +345,10 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys,
     assert "-- (b) phase 7 (b)'s step (qwen1.5-0.5b, (2, 16), f32, no " \
         "remat) through _step_metrics" in out
     assert "attention calls 0 against its flash_attention launches 0" in out
+    assert "-- (b) qwen2-moe-a2.7b decode_32k on 16x16 cut to 2 layers, " \
+        "rank 0's bytes received a step" in out
+    for kind in ("all-gather", "all-reduce"):
+        assert f"  {kind} " in out and "bytes, at most the reference's " in out
     assert "# phase 11: " in out and "# flash_attention kernel launches " \
         "on phase 11: 0" in out
     assert "4 decode steps from the prefill vs a forward" in out
