@@ -217,7 +217,16 @@ the sweep fabric and DeepFlow's surrogate exploration (``pathfind sweep
                its all-gather and all-reduce bytes a step held to at
                most the reference's (``DRYRUN["moe_most"]``, the figures
                tests/test_torch_dryrun_mesh_faults.py holds on the
-               host: the expert products run on the weights' shards).
+               host: the expert products run on the weights' shards);
+               (c) phi3-medium-14b prefill_32k on 16x16 cut to 2 layers
+               through ``dryrun.port_collectives`` (``DRYRUN["ffn"]``),
+               its bytes received a step, all kinds summed, held to at
+               most the reference's (``DRYRUN["ffn_reference"]``) and
+               each kind to the host's count of the same code
+               (``DRYRUN["ffn_kinds"]``: swiglu's halves paired on the
+               ``model`` shards, not its product gathered); and (a)'s
+               qwen1.5-0.5b train_4k FLOPs per device on each mesh held
+               within 1 % of the host's (``DRYRUN["flops"]``).
 
 Every kernel's launch count is zeroed just before phases 3-5, 6, 7 (b)-(e),
 8, 9 (a) and 10, and read just after each; each must have risen by exactly
@@ -3682,6 +3691,18 @@ DRYRUN = dict(cli=(("qwen1.5-0.5b", "train_4k", "single"),
               # bytes a rank its peak may reach
               moe=("qwen2-moe-a2.7b", "decode_32k", "16x16", 2),
               moe_most={"all-gather": 390541824, "all-reduce": 17112832},
+              # (c), a process of its own: phi3-medium-14b prefill_32k on
+              # 16x16 cut to 2 layers (arch, cell, mesh, layers), its bytes
+              # a step at most the reference's total (probe-corrected, CPU
+              # JAX) and each kind the host's count of the same code, to
+              # 1 %; (a)'s qwen1.5-0.5b train_4k FLOPs per device, the
+              # host's (torch 2.13), to 1 %
+              ffn=("phi3-medium-14b", "prefill_32k", "16x16", 2),
+              ffn_reference=14513602560,
+              ffn_kinds={"all-gather": 2312110080, "all-reduce": 3355443200,
+                         "all-to-all": 45875200},
+              flops={("qwen1.5-0.5b", "train_4k", "single"): 2.1607980e13,
+                     ("qwen1.5-0.5b", "train_4k", "multi"): 1.0803990e13},
               peak=(("recurrentgemma-2b", "prefill_32k", "single"),
                     7.1 * 2 ** 30))
 
@@ -3985,11 +4006,21 @@ def dryrun_step(arch: str, batch: int, seq: int, use_reduced: bool,
     print(json.dumps(out))
 
 
+def dryrun_ffn(arch: str, cell: str, mesh: str, layers: int) -> None:
+    """Phase 11 (c)'s process: the bytes rank 0 receives in a step of the
+    cell cut to ``layers`` layers on a fake group of the mesh's ranks, the
+    card's path (``dryrun.port_collectives``), as one JSON line."""
+    from repro_torch.launch import dryrun
+    print(json.dumps(dryrun.port_collectives(
+        arch, cell, [int(x) for x in mesh.split("x")], layers)))
+
+
 def start_dryrun(device, dry: dict, train: dict, workdir: Path) -> list:
     """Phase 11's processes (one host thread each, no card visible: the
     dry-run touches none), their output in ``workdir``: (a) the CLI on
     ``dry["cli"]``'s cells, (b) `dryrun_step` on phase 7 (b)'s
-    configuration.  Returns [(what, process, start time, stdout and
+    configuration (``what`` "step"), (c) `dryrun_ffn` on ``dry["ffn"]``
+    (``what`` "ffn").  Returns [(what, process, start time, stdout and
     stderr files, its end, its reaper thread)]: a thread waits for each
     process as it exits (`_reap_one`).  The host's rehearsal counts the host's path
     (``--device cpu``), which its phase 7 ran."""
@@ -4003,12 +4034,16 @@ def start_dryrun(device, dry: dict, train: dict, workdir: Path) -> list:
               arch, "--cell", cell, "--mesh", mesh, "--force", "--out",
               str(workdir), "--device", path])
             for arch, cell, mesh in dry["cli"]]
-    runs.append((None, [sys.executable, "-c",
-                        "import json, sys, chip_smoke; "
-                        "chip_smoke.dryrun_step(*json.loads(sys.argv[1]))",
-                        json.dumps([train["arch"], train["batch"],
-                                    train["seq"], train["use_reduced"],
-                                    path, dry["moe"]])]))
+    runs.append(("step", [sys.executable, "-c",
+                          "import json, sys, chip_smoke; "
+                          "chip_smoke.dryrun_step(*json.loads(sys.argv[1]))",
+                          json.dumps([train["arch"], train["batch"],
+                                      train["seq"], train["use_reduced"],
+                                      path, dry["moe"]])]))
+    runs.append(("ffn", [sys.executable, "-c",
+                         "import json, sys, chip_smoke; "
+                         "chip_smoke.dryrun_ffn(*json.loads(sys.argv[1]))",
+                         json.dumps(list(dry["ffn"]))]))
     procs = []
     try:
         for i, (what, cmd) in enumerate(runs):
@@ -4054,8 +4089,8 @@ def _reap_dryrun(procs: list, timeout: float) -> list:
     for what, proc, start, logs, end, reaper in procs:
         reaper.join(max(deadline - time.perf_counter(), 0.0))
         if reaper.is_alive():
-            raise TimeoutError(f"phase 11: {what or 'dryrun_step'} still "
-                               f"ran after {timeout:.0f}s")
+            raise TimeoutError(f"phase 11: {what} still ran after "
+                               f"{timeout:.0f}s")
         done.append((what, proc.returncode, end["t"] - start, end["cpu"],
                      logs[0].read_text(), logs[1].read_text()))
     return done
@@ -4072,9 +4107,9 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
     print(f"== phase 11: the multi-pod dry-run on fake tensors, the "
           f"{path} path, {len(done)} processes run together before phase "
           f"3; " + (card_line() if cuda else "host rehearsal"))
+    names = {"step": "(b) dryrun_step", "ffn": "(c) dryrun_ffn"}
     for what, rc, wall, cpu, out, err in done:
-        name = "(b) dryrun_step" if what is None else \
-            "(a) " + " ".join(what)
+        name = names.get(what) or "(a) " + " ".join(what)
         print(f"  {name}: exit {rc}, {wall:.2f}s wall, {cpu:.2f}s CPU")
     total = torch.cuda.get_device_properties(device).total_memory \
         if cuda else None
@@ -4087,7 +4122,7 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
                 if not rec["ok"]:
                     print(rec["traceback"])
         assert rc == 0, (what, rc, err[-3000:])
-        if what is None:
+        if what in names:
             continue
         arch, cell, mesh = what
         print(f"-- (a) python -m repro_torch.launch.dryrun --arch {arch} "
@@ -4123,8 +4158,18 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
         assert peak <= most, (cell, recs[cell]["memory"], most)
         print(f"-- (a) {' '.join(cell)}: peak {peak} bytes a rank, at most "
               f"{most / 2 ** 30:.2f} GiB: held")
+    if cuda:
+        for cell, want in dry["flops"].items():
+            got = recs[cell]["flops_per_device"]
+            assert abs(got - want) <= 0.01 * want, (cell, got, want)
+            print(f"-- (a) {' '.join(cell)}: {got:.4e} FLOPs per device, "
+                  f"the host's {want:.4e} to 1 %: held")
+    lines = {what: out.strip().splitlines() for what, _, _, _, out, _ in done
+             if what in names}
+    assert set(lines) == set(names) and all(lines.values()), \
+        f"phase 11: a record is missing: {sorted(lines)}"
     step = phase7["step"]
-    got = json.loads(done[-1][4].strip().splitlines()[-1])
+    got = json.loads(lines["step"][-1])
     mem = got["memory"]
     print(f"-- (b) phase 7 (b)'s step ({train['arch']}, ({train['batch']}, "
           f"{train['seq']}), f32, no remat) through _step_metrics: exit 0, "
@@ -4146,6 +4191,21 @@ def phase_dryrun(done: list, device, dry: dict, train: dict, phase7: dict,
         assert coll[kind] <= most, (kind, coll, most)
         print(f"  {kind} {coll[kind]:.0f} bytes, at most the "
               f"reference's {most}: held")
+    arch, cell, mesh, layers = dry["ffn"]
+    coll = json.loads(lines["ffn"][-1])
+    kinds = [k for k in coll if k != "count"]
+    total = sum(coll[k] for k in kinds)
+    print(f"-- (c) {arch} {cell} on {mesh} cut to {layers} layers, rank 0's "
+          f"bytes received a step: " + ", ".join(
+              f"{k} {coll[k] / 2 ** 20:.3f} MiB" for k in kinds)
+          + f"; {coll['count']} collectives")
+    assert total <= dry["ffn_reference"], (coll, dry["ffn_reference"])
+    print(f"  total {total / 2 ** 20:.3f} MiB, at most the reference's "
+          f"{dry['ffn_reference'] / 2 ** 20:.3f}: held")
+    for kind in kinds:
+        want = dry["ffn_kinds"].get(kind, 0)
+        assert abs(coll[kind] - want) <= 0.01 * want, (kind, coll, want)
+    print("  each kind the host's count to 1 %: held")
     assert mem["argument_bytes"] == step["arg_bytes"], (mem, step)
     assert got["kernels"].get("flash_attention", 0) == \
         step["attention_launches"], (got["kernels"], step)

@@ -166,6 +166,19 @@ def gather_dp(tree, keep=()):
     return tree_map(_gather_one, tree)
 
 
+def tied_table(table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A tied embedding table ready for its lookup and the head alike
+    where no gradient reaches it (serving): on a mesh each rank's shard
+    cast to ``dtype`` (as `lookup` and `head_logits` cast it) and the DP
+    shards gathered once (`gather_dp`), so that the head takes the
+    lookup's gather.  A plain tensor, or one a gradient reaches, as it
+    is."""
+    if not is_dtensor(table) or (torch.is_grad_enabled()
+                                 and table.requires_grad):
+        return table
+    return _gather_one(table.to(dtype))
+
+
 def layer_params(tree, i: int, keep=()):
     """Layer ``i``'s parameters from a stacked tree, ready for use
     (`gather_dp`: one layer gathered at a time, ``keep`` as stored)."""
@@ -201,13 +214,204 @@ def head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         run_check=False)
 
 
-def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows ``table[tokens]``; on a mesh (a DTensor table, the vocabulary
-    possibly sharded) the embedding lookup, which gives the same rows."""
-    if is_dtensor(table):
+def residual(x: torch.Tensor, r: torch.Tensor, rules, mesh) -> torch.Tensor:
+    """``x + r``, ``r`` first put in the residual stream's layout (on a
+    mesh: a row-parallel product's partial sums reduced), so that the
+    stream stays whole on d, as the reference's compiler keeps it,
+    whatever DTensor's strategies for the sum."""
+    return x + logical(r, ("batch", "act_seq", "act_embed"), rules, mesh)
+
+
+def pairs_weights(rows: int, k: int) -> bool:
+    """How `swiglu` brings each rank's halves together on a mesh: True
+    moves the weight's columns (``k`` x 2f/M elements a rank, and their
+    gradient back), False the product's (``rows`` x 2f/M); the fewer."""
+    return rows > k
+
+
+def swiglu_split(w: torch.Tensor) -> Tuple[Optional[int], bool]:
+    """(the one mesh dim that splits the last dim of ``w``, a swiglu
+    weight stored [u | g], over more than one rank, or None where none
+    or several do; whether its ranks divide f, so that each can hold the
+    same slice of u and g)."""
+    if not is_dtensor(w):
+        return None, False
+    from torch.distributed.tensor import Shard
+    mesh, last = w.device_mesh, w.ndim - 1
+    dims = [i for i, p in enumerate(w.placements)
+            if p == Shard(last) and mesh.size(i) > 1]
+    if len(dims) != 1:
+        return None, False
+    return dims[0], (w.shape[-1] // 2) % mesh.size(dims[0]) == 0
+
+
+def pair_halves(t: torch.Tensor, mesh, i: int) -> torch.Tensor:
+    """Each rank's shard of a last dim [u | g] that mesh dim ``i`` splits
+    evenly (M ranks, rank m holding blocks 2m and 2m + 1 of the 2M
+    blocks of f / M) made [u_m | g_m], the m-th blocks of u and g: one
+    all-to-all over that dim, each rank sending block j to rank j mod M
+    and receiving its two from ranks m // 2 and (M + m) // 2, in that
+    order.  The gradient goes back the same way."""
+    from torch.distributed._functional_collectives import \
+        all_to_all_single_autograd
+    n, m = mesh.size(i), mesh.get_local_rank(i)
+    c = t.shape[-1] // 2
+    blocks = t.movedim(-1, 0)
+    dst = [(2 * m) % n, (2 * m + 1) % n]
+    if dst[0] > dst[1]:                 # sent in the order of their ranks
+        blocks = torch.cat([blocks[c:], blocks[:c]])
+    send, recv = [0] * n, [0] * n
+    for r in dst:
+        send[r] += c
+    recv[m // 2] += c
+    recv[(n + m) // 2] += c
+    out = all_to_all_single_autograd(blocks.contiguous(), recv, send,
+                                     mesh.get_group(i))
+    return out.movedim(0, -1)
+
+
+def swiglu_paired(h, i: int, paired: bool):
+    """swiglu's ``silu(g) * u`` of a product DTensor ``h`` whose last dim,
+    [u | g], mesh dim ``i`` splits evenly (`swiglu_split`), on each
+    rank's shard: made [u_m | g_m] first (`pair_halves`) unless
+    ``paired`` (the weight's columns were, so the shard already is); the
+    result is split over f on ``i`` as wo's rows are, h's other
+    placements kept (none a partial sum)."""
+    hl = h.to_local()
+    if not paired:
+        hl = pair_halves(hl, h.device_mesh, i)
+    return _swiglu_local(hl, h.device_mesh, h.placements, h.shape)
+
+
+def _swiglu_local(hl, mesh, placements, shape):
+    """The DTensor of global ``shape`` less half its last dim whose
+    shards are swiglu of each rank's [u_m | g_m] ``hl``."""
+    from torch.distributed.tensor import DTensor
+    u, g = torch.chunk(hl, 2, dim=-1)
+    out = (*shape[:-1], shape[-1] // 2)
+    return DTensor.from_local(activation("swiglu", g) * u, mesh, placements,
+                              run_check=False, shape=torch.Size(out),
+                              stride=_contiguous(out))
+
+
+def swiglu(x: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """swiglu's ``silu(g) * u`` of ``x @ wi``, ``wi`` (d, 2f) stored
+    [u | g] (in x's dtype).  On a mesh where one mesh dim of M ranks
+    splits wi's columns and M divides f, each rank computes u and g for
+    the same m-th slice of f and nothing is gathered: x is made whole on
+    d and on that dim (its token shards kept), and `pairs_weights`
+    chooses whether the rank's columns of wi are paired before the
+    product (`pair_halves`) or the product's after (`swiglu_paired`);
+    the result comes out split over f there, as wo's rows are.  x's
+    gradient is then a partial sum over that dim and wi's over x's token
+    shards, each reduced to its stored layout.  Where M does not divide
+    f, the product is made whole there (replicated, as `logical` does
+    with a dim its devices do not divide)."""
+    if not (is_dtensor(x) and is_dtensor(wi)):
+        return _swiglu_whole(x @ wi)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, last = x.device_mesh, x.ndim - 1
+    i, even = swiglu_split(wi)
+    if not even:
+        return _swiglu_whole(x @ wi)
+    xpl = tuple(Replicate() if j == i or not p.is_shard() or p.dim == last
+                else p for j, p in enumerate(x.placements))
+    x = x.redistribute(mesh, xpl)
+    hpl = tuple(Shard(last) if j == i else p for j, p in enumerate(xpl))
+    if not pairs_weights(x.to_local().numel() // x.shape[-1], wi.shape[0]):
+        return swiglu_paired((x @ wi).redistribute(mesh, hpl), i, False)
+    wpl = tuple(p if j == i else Replicate()
+                for j, p in enumerate(wi.placements))
+    wl = wi.redistribute(mesh, wpl).to_local(grad_placements=tuple(
+        p if j == i else Partial() if xp.is_shard() else Replicate()
+        for j, (p, xp) in enumerate(zip(wpl, xpl))))
+    xl = x.to_local(grad_placements=tuple(
+        Partial() if j == i else p for j, p in enumerate(xpl)))
+    return _swiglu_local(xl @ pair_halves(wl, mesh, i), mesh, hpl,
+                         (*x.shape[:-1], wi.shape[-1]))
+
+
+def ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, kind: str,
+        rules=None, mesh=None) -> torch.Tensor:
+    """An FFN, ``act(x @ wi) @ wo`` (swiglu: `swiglu`), the weights cast
+    to x's dtype; on a mesh the hidden activations in the ``mlp`` layout
+    and both products on the ``model`` shards (`swiglu`,
+    `row_parallel`)."""
+    wi = wi.to(x.dtype)
+    h = swiglu(x, wi) if kind == "swiglu" else activation(kind, x @ wi)
+    h = logical(h, ("batch", "act_seq", "mlp"), rules, mesh)
+    return row_parallel(h, wo.to(x.dtype))
+
+
+def row_parallel(h: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """A block's output projection ``h @ wo`` (the FFN's down-projection,
+    attention's out), ``wo`` (f, d) in h's dtype.  On a mesh where one
+    mesh dim splits wo's rows evenly and h's last dim alike or not at all
+    (heads that the dim does not divide: h whole there), h takes that
+    split (a local slice: its gradient is gathered back) and the product
+    runs on the local shards, a partial sum over that dim for the
+    residual add to reduce (`residual`): its backward stays on the shards
+    too, whatever DTensor's strategies.  wo's gradient is a partial sum
+    over h's token shards.  Otherwise DTensor's product."""
+    if not (is_dtensor(h) and is_dtensor(wo)):
+        return h @ wo
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, last = h.device_mesh, h.ndim - 1
+    rows = [j for j, p in enumerate(wo.placements)
+            if p == Shard(0) and mesh.size(j) > 1]
+    if len(rows) != 1 or wo.shape[0] % mesh.size(rows[0]) or \
+            h.placements[rows[0]] not in (Replicate(), Shard(last)) or \
+            any(p.is_partial() or (p == Shard(last) and j != rows[0])
+                for j, p in enumerate(h.placements)):
+        return h @ wo
+    i = rows[0]
+    h = h.redistribute(mesh, tuple(Shard(last) if j == i else p
+                                   for j, p in enumerate(h.placements)))
+    wl = wo.redistribute(mesh, tuple(
+        Shard(0) if j == i else Replicate() for j in range(mesh.ndim))
+    ).to_local(grad_placements=tuple(
+        Shard(0) if j == i else Partial() if p.is_shard() else Replicate()
+        for j, p in enumerate(h.placements)))
+    shape = (*h.shape[:-1], wo.shape[-1])
+    return DTensor.from_local(
+        h.to_local() @ wl, mesh,
+        tuple(Partial() if j == i else p for j, p in enumerate(h.placements)),
+        run_check=False, shape=torch.Size(shape), stride=_contiguous(shape))
+
+
+def _contiguous(shape) -> Tuple[int, ...]:
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.insert(0, n)
+        n *= size
+    return tuple(stride)
+
+
+def _swiglu_whole(h: torch.Tensor) -> torch.Tensor:
+    """swiglu of a product's halves (on a mesh DTensor's chunk, which
+    gathers a split last dim)."""
+    u, g = torch.chunk(h, 2, dim=-1)
+    return activation("swiglu", g) * u
+
+
+def lookup(table: torch.Tensor, tokens: torch.Tensor,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rows ``table[tokens]``, in ``dtype`` where given; on a mesh (a
+    DTensor table, the vocabulary possibly sharded) the embedding lookup,
+    which gives the same rows.  There, where no gradient reaches the
+    table (serving), each rank casts its shard first, so the table's
+    gather moves ``dtype``: a cast commutes with a lookup, so the rows
+    are the same (a gradient would accumulate in ``dtype``, so training
+    gathers the stored dtype)."""
+    if not is_dtensor(table):
+        rows = table[tokens.long()]
+    else:
         from repro_torch.parallel import shards
-        return shards.embedding(table, tokens)
-    return table[tokens.long()]
+        if dtype is not None and not (torch.is_grad_enabled()
+                                      and table.requires_grad):
+            table = table.to(dtype)
+        rows = shards.embedding(table, tokens)
+    return rows if dtype is None else rows.to(dtype)
 
 
 def split_last(y: torch.Tensor, n: int, size: int) -> torch.Tensor:

@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef
-from repro_torch.models.transformer import (_adtype, _rematted,
+from repro_torch.models.transformer import (_adtype, _rematted, _tied,
                                             attention_apply, attention_defs,
                                             ffn_apply, ffn_defs, stack_defs)
 
@@ -68,9 +68,10 @@ def _enc_block(p, x, cfg, rules, mesh):
     h = common.norm(cfg.norm_kind, x, p["ln1"])
     a, _ = attention_apply(p["attn"], h, cfg, causal=False, rules=rules,
                            mesh=mesh)
-    x = x + a
+    x = common.residual(x, a, rules, mesh)
     h = common.norm(cfg.norm_kind, x, p["ln2"])
-    return x + ffn_apply(p["ffn"], h, cfg, rules, mesh)
+    return common.residual(x, ffn_apply(p["ffn"], h, cfg, rules, mesh), rules,
+                           mesh)
 
 
 def encode(params: Dict, frames: torch.Tensor, cfg: ArchConfig, *,
@@ -91,19 +92,20 @@ def _dec_block(p, x, cfg, enc_out, self_cache=None, cross_cache=None,
     h = common.norm(cfg.norm_kind, x, p["ln1"])
     a, _ = attention_apply(p["self"], h, cfg, causal=True, cache=self_cache,
                            pos=pos, rules=rules, mesh=mesh)
-    x = x + a
+    x = common.residual(x, a, rules, mesh)
     h = common.norm(cfg.norm_kind, x, p["lnx"])
     a, _ = attention_apply(p["cross"], h, cfg, causal=False,
                            kv_source=enc_out, cache=cross_cache,
                            cross_cache_only=enc_out is None, rules=rules,
                            mesh=mesh)
-    x = x + a
+    x = common.residual(x, a, rules, mesh)
     h = common.norm(cfg.norm_kind, x, p["ln2"])
-    return x + ffn_apply(p["ffn"], h, cfg, rules, mesh)
+    return common.residual(x, ffn_apply(p["ffn"], h, cfg, rules, mesh), rules,
+                           mesh)
 
 
 def _embed_tokens(params, cfg, tokens):
-    x = common.lookup(params["embed"], tokens).to(_adtype(cfg))
+    x = common.lookup(params["embed"], tokens, _adtype(cfg))
     pe = common.sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device)
     return x + pe.to(x.dtype)[None]
 
@@ -122,6 +124,7 @@ def forward(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
     ``remat`` (any true value) checkpoints each decoder layer, as the
     reference's ``jax.checkpoint(body)``."""
     enc_out = encode(params, frames, cfg, rules=rules, mesh=mesh)
+    params = _tied(params, cfg)
     x = _embed_tokens(params, cfg, tokens)
     x = common.logical(x, ("batch", "act_seq", "act_embed"), rules, mesh)
     body = _rematted(lambda x, lp: _dec_block(lp, x, cfg, enc_out,
@@ -181,7 +184,8 @@ def decode_step(params: Dict, caches: Dict, tokens: torch.Tensor, pos: int,
     """One decoder token against the self cache (a ring of ``decoder_len``)
     and the cross cache; both updated in place (the cross cache is only
     read).  ``pos`` is a host int."""
-    x = common.lookup(params["embed"], tokens).to(_adtype(cfg))
+    params = _tied(params, cfg)
+    x = common.lookup(params["embed"], tokens, _adtype(cfg))
     pe = common.sinusoidal_positions(cfg.decoder_len, cfg.d_model, x.device)
     row = min(max(int(pos), 0), cfg.decoder_len - 1)
     x = x + pe[row:row + 1].to(x.dtype)[None]

@@ -33,8 +33,10 @@ casts its own shard): the expert products run where the weights lie
 ``grouped_tp`` takes G = ``cfg.moe_groups`` or the DP degree (``data`` x
 ``pod``, the reference's rule), so each DP shard dispatches its own
 groups: the weights, in the activation dtype, are gathered over the DP
-axes, and the only collective left on the products is the
-down-projection's reduction over ``model`` (the experts' hidden dim).
+axes, swiglu's halves are paired on the ``model`` shards of the experts'
+hidden dim (`common.swiglu_paired`: the weights' columns or the
+product's, whichever are fewer), and the only collective left on the
+products is the down-projection's reduction over ``model``.
 ``scatter_ep`` keeps one buffer for all tokens: every rank routes the
 whole batch; the experts are computed where the ``experts`` axis puts
 them (EP over ``model``), and each rank contracts its ``fsdp`` slice of
@@ -104,9 +106,9 @@ def _expert_ffn(wi: torch.Tensor, wo: torch.Tensor, x: torch.Tensor,
 
 
 def _shared(params: Dict, xt: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The shared experts, an FFN (`common.ffn`)."""
     sh = params["shared"]
-    h = _act(xt @ sh["wi"].to(xt.dtype), cfg.ffn_kind)
-    return h @ sh["wo"].to(xt.dtype)
+    return common.ffn(xt, sh["wi"], sh["wo"], cfg.ffn_kind)
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -249,16 +251,17 @@ def gathers_weights(slots: int, d: int, fi: int, fo: int) -> bool:
     return slots * (fi + d) > d * (fi + fo)
 
 
-def _expert_product(a, w, bpl):
+def _expert_product(a, w, bpl, pair=None):
     """``einsum("geck,ekn->gecn", a, w)`` of DTensors, computed where the
     weight ``w`` lies: on each mesh dim that splits w's experts, its k or
     its n, ``a`` takes the matching split (a local slice where it is whole
     there) and the product comes out split over the experts, as a partial
     sum over k, or split over n; on the mesh dims that keep ``w`` whole,
     ``a`` and the product keep the tokens' placements ``bpl``.  No weight
-    moves.  In the backward, ``a``'s gradient is a partial sum over n's
-    shards and ``w``'s over the tokens' shards, so each reaches its stored
-    layout."""
+    moves, but for ``pair``, a mesh dim that splits swiglu's n = [u | g]:
+    the rank's columns are made [u_m | g_m] first (`common.pair_halves`).
+    In the backward, ``a``'s gradient is a partial sum over n's shards and
+    ``w``'s over the tokens' shards, so each reaches its stored layout."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     split = {0: (Shard(1), Shard(1)), 1: (Shard(3), Partial()),
              2: (Replicate(), Shard(3))}    # w's dim -> (a, product)
@@ -272,6 +275,8 @@ def _expert_product(a, w, bpl):
     al = a.redistribute(a.device_mesh, tuple(a_pl)).to_local(
         grad_placements=tuple(a_grad))
     wl = w.to_local(grad_placements=tuple(w_grad))
+    if pair is not None:
+        wl = common.pair_halves(wl, a.device_mesh, pair)
     return DTensor.from_local(torch.einsum("geck,ekn->gecn", al, wl),
                               a.device_mesh, tuple(o_pl), run_check=False)
 
@@ -325,13 +330,22 @@ def _mesh_apply(params: Dict, x, cfg: ArchConfig, mesh
     wi, wo = (w.redistribute(xmesh, tuple(
         Replicate() if gather else p
         for gather, p in zip(whole, w.placements))) for w in (wi, wo))
-    h = _expert_product(buf, wi, bpl)
-    # the hidden dim summed, and whole where swiglu halves it
+    # swiglu's halves paired on the model shards: the weights' columns or
+    # the product's, the fewer (`common.pairs_weights`); where the shards
+    # do not divide f, the product is made whole there
+    i, even = common.swiglu_split(wi) if cfg.ffn_kind == "swiglu" else \
+        (None, False)
+    paired = even and common.pairs_weights(
+        buf.to_local().shape[0] * cap, wi.to_local().shape[1])
+    h = _expert_product(buf, wi, bpl, i if paired else None)
+    # the hidden dim summed
     h = h.redistribute(xmesh, tuple(
-        Replicate() if p.is_partial() or (p == Shard(3)
-                                          and cfg.ffn_kind == "swiglu")
+        Replicate() if p.is_partial() or (i is not None and not even
+                                          and p == Shard(3))
         else p for p in h.placements))
-    out_buf = _expert_product(_act(h, cfg.ffn_kind), wo, bpl)
+    h = common.swiglu_paired(h, i, paired) if even else \
+        _act(h, cfg.ffn_kind)
+    out_buf = _expert_product(h, wo, bpl)
     out_buf = out_buf.redistribute(xmesh, bpl).to_local()
 
     flat_out = out_buf.reshape(gl, e * cap, d)

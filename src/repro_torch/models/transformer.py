@@ -128,7 +128,7 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
             q.transpose(1, 2), cache["k"].to(x.dtype),
             cache["v"].to(x.dtype), causal=False)
         out = out.transpose(1, 2).reshape(b, s, nh * hd)
-        return _proj(out, p["wo"]), cache
+        return common.row_parallel(out, p["wo"].to(x.dtype)), cache
     src = kv_source if kv_source is not None else x
     skv = src.shape[1]
     k = common.split_last(_proj(src, p["wk"], p.get("bk")), nkv, hd)
@@ -187,7 +187,7 @@ def attention_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     out = common.chunked_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_off, kv_len=kv_len)
     out = out.transpose(1, 2).reshape(b, s, nh * hd)
-    return _proj(out, p["wo"]), cache
+    return common.row_parallel(out, p["wo"].to(x.dtype)), cache
 
 
 def ffn_defs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict:
@@ -200,14 +200,7 @@ def ffn_defs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict:
 
 def ffn_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, rules=None,
               mesh=None) -> torch.Tensor:
-    h = x @ p["wi"].to(x.dtype)
-    h = common.logical(h, ("batch", "act_seq", "mlp"), rules, mesh)
-    if cfg.ffn_kind == "swiglu":
-        u, g = torch.chunk(h, 2, dim=-1)
-        h = common.activation("swiglu", g) * u
-    else:
-        h = common.activation(cfg.ffn_kind, h)
-    return h @ p["wo"].to(x.dtype)
+    return common.ffn(x, p["wi"], p["wo"], cfg.ffn_kind, rules, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -274,15 +267,6 @@ def _store(cache: Dict, state: Dict) -> Dict:
     return cache
 
 
-def _residual(x: torch.Tensor, r: torch.Tensor, rules, mesh) -> torch.Tensor:
-    """``x + r``, ``r`` first put in the residual stream's layout (on a
-    mesh: a row-parallel product's partial sums reduced), so that the
-    stream stays whole on d, as the reference's compiler keeps it,
-    whatever DTensor's strategies for the sum."""
-    return x + common.logical(r, ("batch", "act_seq", "act_embed"), rules,
-                              mesh)
-
-
 def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
                 attn_kind: str, *, cache=None, pos: Optional[int] = None,
                 rules=None, mesh=None
@@ -297,13 +281,13 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         a, new_cache = attention_apply(p["attn"], h, cfg, causal=True,
                                        window=window, cache=cache, pos=pos,
                                        rules=rules, mesh=mesh)
-        x = _residual(x, a, rules, mesh)
+        x = common.residual(x, a, rules, mesh)
         h = common.norm(cfg.norm_kind, x, p["ln2"])
         if cfg.is_moe:
             f, aux = moe_lib.moe_apply(p["moe"], h, cfg, rules, mesh)
         else:
             f = ffn_apply(p["ffn"], h, cfg, rules, mesh)
-        return _residual(x, f, rules, mesh), new_cache, aux
+        return common.residual(x, f, rules, mesh), new_cache, aux
     if kind == "rglru":
         if cache is None:                                  # train
             r = rglru_lib.rglru_apply(p["rec"], h, cfg)
@@ -314,10 +298,10 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         else:                                              # decode
             r, state = rglru_lib.rglru_decode(p["rec"], h, cache, cfg)
             _store(cache, state)
-        x = _residual(x, r, rules, mesh)
+        x = common.residual(x, r, rules, mesh)
         h = common.norm(cfg.norm_kind, x, p["ln2"])
-        return _residual(x, ffn_apply(p["ffn"], h, cfg, rules, mesh), rules,
-                         mesh), cache, aux
+        f = ffn_apply(p["ffn"], h, cfg, rules, mesh)
+        return common.residual(x, f, rules, mesh), cache, aux
     if kind == "mlstm":
         if pos is None:
             r = xlstm_lib.mlstm_apply(p["mlstm"], h, cfg)
@@ -327,7 +311,7 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         else:                                              # decode
             r, state = xlstm_lib.mlstm_decode(p["mlstm"], h, cache, cfg)
             _store(cache, state)
-        return _residual(x, r, rules, mesh), cache, aux
+        return common.residual(x, r, rules, mesh), cache, aux
     if kind == "slstm":
         if cache is None:                                  # train
             r = xlstm_lib.slstm_apply(p["slstm"], h, cfg)
@@ -338,7 +322,7 @@ def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         else:                                              # decode
             r, state = xlstm_lib.slstm_decode(p["slstm"], h, cache, cfg)
             _store(cache, state)
-        return _residual(x, r, rules, mesh), cache, aux
+        return common.residual(x, r, rules, mesh), cache, aux
     raise ValueError(kind)
 
 
@@ -371,7 +355,7 @@ def _adtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _embed(params, cfg, tokens, embeds=None, rules=None, mesh=None):
-    x = common.lookup(params["embed"], tokens).to(_adtype(cfg))
+    x = common.lookup(params["embed"], tokens, _adtype(cfg))
     if cfg.family in ("dense", "moe", "hybrid"):
         # the constant rounded to the activation dtype first, as
         # jnp.asarray(sqrt(d), x.dtype) is (on the host: no device sync)
@@ -380,6 +364,15 @@ def _embed(params, cfg, tokens, embeds=None, rules=None, mesh=None):
         n = embeds.shape[1]
         x = torch.cat([embeds.to(x.dtype), x[:, n:]], dim=1)
     return common.logical(x, ("batch", "act_seq", "act_embed"), rules, mesh)
+
+
+def _tied(params, cfg):
+    """``params`` with a tied embedding table made ready once for the
+    lookup and the head (`common.tied_table`)."""
+    if not cfg.tie_embeddings:
+        return params
+    return dict(params, embed=common.tied_table(params["embed"],
+                                                _adtype(cfg)))
 
 
 def _head(params, cfg, x):
@@ -450,6 +443,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     the reference's) checkpoints each stacked pattern group, as the
     reference checkpoints its scanned group body; the remainder layers are
     not checkpointed, as there."""
+    params = _tied(params, cfg)
     x = _embed(params, cfg, tokens, embeds, rules, mesh)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -494,6 +488,7 @@ def decode_step(params: Dict, caches: Dict, tokens: torch.Tensor, pos: int,
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token step. tokens: (b, 1) int; pos: host int (current cache
     length).  Returns (logits (b, 1, vocab), caches updated in place)."""
+    params = _tied(params, cfg)
     x = _embed(params, cfg, tokens, None, rules, mesh)
     for bp, bc, bk, ak in _layers(params, caches, cfg):
         x, _, _ = block_apply(bp, x, cfg, bk, ak, cache=bc, pos=int(pos),

@@ -32,7 +32,20 @@ the reference's, and the expert layouts the port's MoE layers took
         [--layers N]
 
 prints the port's dot FLOPs of one step by op and local operand shapes
-(`port_ops`: which products a mesh runs whole on every rank).  The
+(`port_ops`: which products a mesh runs whole on every rank);
+
+    python tests/dryrunhelpers.py --survey [--layers N] [--timeout S]
+        [--jobs J] [--arch A]... [--out FILE]
+
+runs every architecture of ``ARCH_IDS`` and paper-lm on each of its
+``applicable_cells`` on 16x16 at N and 2N layers (default 2) and prints,
+per cell and depth, the MiB rank 0 receives by kind in the port's step
+and the reference's, the port's dot FLOPs a rank beside the reference's
+jaxpr walk over the ranks, and then the slope (2N less N layers); each
+side of each cell is a process of its own, ended after S seconds
+(default 240), and a side that fails or runs out of time prints one line
+that says so (`survey`).  ``--out`` also writes one JSON line per cell
+and depth.  The
 reference's mesh axes are ``Auto`` (``launch/mesh.make_mesh`` builds
 ``Explicit`` ones on this JAX, which ``with_sharding_constraint``
 refuses) and the reference's bucketing is off (its bucketed evaluator
@@ -43,6 +56,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import sys
 
 
@@ -135,9 +149,12 @@ def main(argv) -> None:
     plan = planner.plan(cfg, SHAPE_CELLS[cell_name], shape, axes)
     out = {"plan": {"strategy": plan.strategy.name,
                     "predicted_step_s": plan.predicted_step_s,
-                    "predicted_breakdown": plan.predicted_breakdown,
-                    "params": cfg.param_count(),
-                    "active_params": cfg.active_param_count()}}
+                    "predicted_breakdown": plan.predicted_breakdown}}
+    try:
+        out["plan"].update(params=cfg.param_count(),
+                           active_params=cfg.active_param_count())
+    except ValueError:
+        pass            # the reference counts no LSTM block (paper-lm)
     if "--walk" in argv or "--memory" in argv:
         mesh = jax.make_mesh(shape, axes,
                              axis_types=(AxisType.Auto,) * len(shape))
@@ -258,6 +275,141 @@ def compare_collectives(argv) -> None:
               + (" (forced)" if force is not None else ""))
 
 
+SURVEY_MESH = "16x16"
+
+
+def _json_of(cmd, timeout: float):
+    """(the last line of ``cmd``'s output as JSON, None) or (None, why it
+    gave none: its time limit or its error's last line)."""
+    import os
+    import subprocess
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    try:
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=timeout, cwd=repo)
+    except subprocess.TimeoutExpired:
+        return None, f"past its {timeout:.0f} s limit"
+    if proc.returncode != 0:
+        lines = [ln.strip() for ln in proc.stderr.splitlines() if ln.strip()]
+        errors = [ln for ln in lines if re.match(r"(\[rank\d+\]: )?[\w.]*"
+                                                 r"(Error|Exception)\b", ln)]
+        return None, ((errors or lines or [f"exit {proc.returncode}"])[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1]), None
+
+
+def port_cell(arch: str, cell_name: str, mesh_txt: str, flags) -> dict:
+    """The port's step of the cell on a fake group of the mesh's ranks
+    (the card's path): rank 0's received bytes by kind, its dot FLOPs
+    and its peak bytes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    shape = tuple(int(x) for x in mesh_txt.split("x"))
+    cfg = dryrun.cut_config(get_config(arch), **_port_cut(flags))
+    with dryrun.fake_group(math.prod(shape)):
+        mesh = mesh_lib.make_mesh(shape, device="cuda")
+        m = dryrun._step_metrics(arch, cell_name, mesh, shape, True, cfg)
+    return {"collectives": m["coll"], "flops": m["flops"],
+            "peak_bytes": m["memory"]["peak_bytes"]}
+
+
+def _survey_one(arch, cell_name, layers, timeout):
+    """One cell at one depth: both sides, each in a process of its own."""
+    flags = ["--layers", str(layers)]
+    port, port_err = _json_of([sys.executable, __file__, "--port-cell",
+                               arch, cell_name, SURVEY_MESH, *flags],
+                              timeout)
+    ref, ref_err = _json_of([sys.executable, __file__, arch, cell_name,
+                             SURVEY_MESH, "--collectives", "--walk",
+                             *flags], timeout)
+    return {"arch": arch, "cell": cell_name, "layers": layers,
+            "port": port, "port_error": port_err,
+            "reference": ref and {"collectives": ref["collectives"],
+                                  "dot_flops": ref["dot_flops"]},
+            "reference_error": ref_err}
+
+
+_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+          "collective-permute")
+
+
+def _mib(coll) -> list:
+    return [coll[k] / 2 ** 20 for k in _KINDS]
+
+
+def _survey_line(rec, ranks: int) -> str:
+    """One cell at one depth: each side's MiB by kind and total, or why it
+    has none; where both have them, port / reference in bytes and FLOPs."""
+    sides = []
+    for side in ("port", "reference"):
+        got = rec[side]
+        if got is None:
+            sides.append(f"{side[:4]}: {rec[side + '_error']}")
+            continue
+        mib = _mib(got["collectives"])
+        sides.append(f"{side[:4]} " + " ".join(f"{v:10.1f}" for v in mib)
+                     + f" = {sum(mib):10.1f}")
+    line = (f"{rec['arch']:18s} {rec['cell']:11s} {rec['layers']:2d}  "
+            + "  ".join(sides))
+    if rec["port"] is None or rec["reference"] is None:
+        return line
+    port = sum(_mib(rec["port"]["collectives"]))
+    ref = sum(_mib(rec["reference"]["collectives"]))
+    pf, rf = rec["port"]["flops"], rec["reference"]["dot_flops"] / ranks
+    return (f"{line}  {port / ref:6.3f}x bytes; FLOPs {pf:.4e} / "
+            f"{rf:.4e} = {pf / rf:.3f}x")
+
+
+def survey(argv) -> None:
+    """`--survey`: see the module docstring."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs.base import _ALIASES, applicable_cells, \
+        get_config
+
+    def opt(name, default, cast=int):
+        return cast(argv[argv.index(name) + 1]) if name in argv else default
+
+    n = opt("--layers", 2)
+    timeout = opt("--timeout", 240.0, float)
+    jobs = opt("--jobs", 2)
+    out = opt("--out", None, str)
+    # every external id: ARCH_IDS' ten and paper-lm
+    archs = [argv[i + 1] for i, a in enumerate(argv) if a == "--arch"] or \
+        list(_ALIASES)
+    work = [(a, c.name, layers) for a in archs
+            for c in applicable_cells(get_config(a)) for layers in (n, 2 * n)]
+    ranks = math.prod(int(x) for x in SURVEY_MESH.split("x"))
+    print(f"# survey on {SURVEY_MESH}: MiB rank 0 receives in a step, "
+          f"{' / '.join(_KINDS)} = total, port then reference; dot FLOPs a "
+          f"rank, port / the reference's jaxpr walk over {ranks}")
+    with ThreadPoolExecutor(jobs) as pool:
+        recs = list(pool.map(lambda w: _survey_one(*w, timeout), work))
+    for rec in recs:
+        print(_survey_line(rec, ranks), flush=True)
+    print(f"# slope: {2 * n} layers less {n}, MiB a step and FLOPs a rank")
+    by = {(r["arch"], r["cell"], r["layers"]): r for r in recs}
+    for arch, cell_name, layers in work[::2]:
+        lo, hi = by[(arch, cell_name, n)], by[(arch, cell_name, 2 * n)]
+        if not all(r["port"] and r["reference"] for r in (lo, hi)):
+            print(f"{arch:18s} {cell_name:11s}  no slope: a side failed")
+            continue
+        dp = sum(_mib(hi["port"]["collectives"])) - \
+            sum(_mib(lo["port"]["collectives"]))
+        dr = sum(_mib(hi["reference"]["collectives"])) - \
+            sum(_mib(lo["reference"]["collectives"]))
+        fp = hi["port"]["flops"] - lo["port"]["flops"]
+        fr = (hi["reference"]["dot_flops"] - lo["reference"]["dot_flops"]) \
+            / ranks
+        print(f"{arch:18s} {cell_name:11s}  port {dp:10.1f} ref {dr:10.1f} "
+              f"MiB; FLOPs {fp:.4e} / {fr:.4e}")
+    if out:
+        with open(out, "w") as f:
+            for rec in recs:
+                f.write(json.dumps(rec) + "\n")
+
+
 if __name__ == "__main__":
     # the repo's packages importable however the script is started
     sys.path.insert(1, str(__import__("pathlib").Path(__file__).resolve()
@@ -266,5 +418,9 @@ if __name__ == "__main__":
         compare_collectives(sys.argv[2:])
     elif sys.argv[1] == "--port-ops":
         print(json.dumps(port_ops(*sys.argv[2:5], sys.argv[5:])))
+    elif sys.argv[1] == "--port-cell":
+        print(json.dumps(port_cell(*sys.argv[2:5], sys.argv[5:])))
+    elif sys.argv[1] == "--survey":
+        survey(sys.argv[2:])
     else:
         main(sys.argv[1:])

@@ -328,6 +328,50 @@ def moe_cases(rank, tmp, arch, shape, cases):
             save(tmp, f"{tag}_out", dict(out, layouts=took))
 
 
+@contextlib.contextmanager
+def swiglu_layouts(force=None):
+    """Each choice of how swiglu's halves meet on the ``model`` shards
+    (`common.swiglu`, the MoE's experts), in the list yielded
+    (`common.pairs_weights`: True moves the weight's columns, False the
+    product's); with ``force`` that one is taken instead of the rule's."""
+    from repro_torch.models import common
+    rule, took = common.pairs_weights, []
+
+    def recorded(*args):
+        took.append(rule(*args) if force is None else force)
+        return took[-1]
+
+    common.pairs_weights = recorded
+    try:
+        yield took
+    finally:
+        common.pairs_weights = rule
+
+
+# (name, forced `pairs_weights`, config overrides): each layout, then an
+# mlp width the 2-way model axis does not divide (swiglu replicated)
+LAYOUTS = (("weights", True, {}), ("products", False, {}),
+           ("uneven", None, {"d_ff": 255}))
+
+
+def ffn_layout_cases(rank, tmp, shape):
+    """tests/test_torch_dryrun_ffn_layout.py's runs on a mesh of
+    ``shape``: `mesh_loss` with every gradient of reduced qwen1.5-0.5b
+    with swiglu's halves paired through each of `LAYOUTS`
+    (`swiglu_layouts`), the choices its layers made saved with each
+    output, then of reduced whisper-large-v3; inputs and outputs under
+    ``dense_<layout><rows>x<cols>`` and ``whisper<rows>x<cols>``."""
+    for layout, force, kw in LAYOUTS:
+        tag = "dense_%s%dx%d" % ((layout,) + shape)
+        with swiglu_layouts(force) as took:
+            mesh_loss(rank, tmp, ARCH, shape, tag, kw, grads=True)
+        if rank == 0:
+            save(tmp, f"{tag}_out", dict(load(tmp, f"{tag}_out"),
+                                         layouts=took))
+    mesh_loss(rank, tmp, "whisper-large-v3", shape, "whisper%dx%d" % shape,
+              grads=True)
+
+
 def params_leaves(tree):
     """A numpy tree's leaves in `tree_leaves` order."""
     from repro_torch.tree import tree_leaves

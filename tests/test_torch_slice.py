@@ -336,9 +336,14 @@ def test_chip_smoke_phases_rehearse_on_the_host(tmp_path, capsys,
         in out
     assert "# phase 11's processes waited for after phase 2: " in out
     assert "== phase 11: the multi-pod dry-run on fake tensors, the cpu " \
-        "path, 2 processes run together before phase 3; host rehearsal" \
+        "path, 3 processes run together before phase 3; host rehearsal" \
         in out
     assert "  (b) dryrun_step: exit 0, " in out and "s CPU" in out
+    assert "  (c) dryrun_ffn: exit 0, " in out
+    assert "-- (c) phi3-medium-14b prefill_32k on 16x16 cut to 2 layers, " \
+        "rank 0's bytes received a step" in out
+    assert ", at most the reference's " in out
+    assert "  each kind the host's count to 1 %: held" in out
     assert "-- (a) python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b " \
         "--cell decode_32k --mesh single --device cpu: exit 0" in out
     assert "  single (16, 16) (256 fake ranks), RC-1-16-d16-p1: " in out
